@@ -1,0 +1,144 @@
+"""Public API of the port: routing, validation, the device rule, and its
+independence from JAX and from the JAX package."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import tinyimgcodec_tpu as jtic
+import tinyimgcodec_tpu_torch as ttic
+from tinyimgcodec_tpu_torch.device import resolve_device
+
+from conftest import synthetic_image
+
+IMG = synthetic_image(48, 40, seed=71)
+
+
+def _no_card() -> bool:
+    return not torch.cuda.is_available()
+
+
+def test_compress_cpu_equals_host_backend_and_jax_package():
+    a = ttic.compress(IMG, 50, device="cpu")
+    b = ttic.compress(IMG, 50, backend="host")
+    c = jtic.compress(IMG, 50, backend="host")
+    assert a == b == c
+    assert np.array_equal(ttic.decompress(a, backend="host"),
+                          jtic.decompress(a, backend="host"))
+
+
+def test_compress_batch_cpu_equals_host_backend():
+    imgs = np.stack([IMG, IMG[::-1]])
+    a = ttic.compress_batch(imgs, 60, device="cpu")
+    b = ttic.compress_batch(imgs, 60, backend="host")
+    c = jtic.compress_batch(imgs, 60, backend="host")
+    assert a == b == c
+    t = ttic.compress_batch(torch.from_numpy(imgs.copy()), 60, device="cpu")
+    assert t == a
+    out = ttic.decompress_batch(a, backend="host")
+    assert out.shape == imgs.shape
+
+
+@pytest.mark.parametrize("block_index", [None, True, False])
+def test_block_index_default_is_on(block_index):
+    got = ttic.compress(IMG, 50, device="cpu", block_index=block_index)
+    want = jtic.compress(IMG, 50, backend="host", block_index=block_index)
+    assert got == want
+    assert got.endswith(b"TICX") == (block_index is not False)
+
+
+def test_fast_precision_routes_to_the_fast_transform():
+    a = ttic.compress(IMG, 50, device="cpu", precision="fast")
+    assert ttic.decompress(a, backend="host").shape == IMG.shape
+    cfg = ttic.CodecConfig(quality=50, precision="fast")
+    assert ttic.compress(IMG, config=cfg, device="cpu") == a
+
+
+@pytest.mark.parametrize(
+    "kwargs, exc",
+    [(dict(quality=100), ValueError), (dict(quality=0), ValueError),
+     (dict(precision="double"), ValueError),
+     (dict(backend="jax"), ValueError),
+     (dict(index_stride=48), ValueError)],
+)
+def test_validation(kwargs, exc):
+    with pytest.raises(exc):
+        ttic.compress(IMG, device="cpu", **kwargs)
+    with pytest.raises(exc):
+        ttic.compress_batch(IMG[None], device="cpu", **kwargs)
+
+
+def test_wrong_rank_is_refused():
+    with pytest.raises(ValueError):
+        ttic.compress(IMG[None], device="cpu")
+    with pytest.raises(ValueError):
+        ttic.compress_batch(IMG, device="cpu")
+
+
+def test_unported_parts_say_so():
+    with pytest.raises(NotImplementedError, match="auto-table"):
+        ttic.compress(IMG, 50, auto_generate_huffman_table=True,
+                      device="cpu")
+    data = ttic.compress(IMG, 50, backend="host",
+                         auto_generate_huffman_table=True)
+    assert np.array_equal(ttic.decompress(data, backend="host"),
+                          jtic.decompress(data, backend="host"))
+    for backend in ("auto", "torch"):
+        with pytest.raises(NotImplementedError, match="decode slice"):
+            ttic.decompress(data, backend=backend)
+        with pytest.raises(NotImplementedError, match="decode slice"):
+            ttic.decompress_batch([data], backend=backend)
+
+
+def test_default_device_raises_without_a_card():
+    """No quiet fall-back to the CPU: with no card and no device="cpu"
+    the entry points raise."""
+    if not _no_card():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttic.compress(IMG, 50)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttic.compress_batch(IMG[None], 50)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttic.compress(IMG, 50, backend="torch")
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_kernel_wrappers_do_not_fall_back_without_nvcc(monkeypatch):
+    """The build step raises when the compiler is missing; nothing catches
+    that and carries on with the plain version."""
+    from tinyimgcodec_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    monkeypatch.setattr(_build, "_LIBS", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("place")
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import sys, numpy as np\n"
+        "import tinyimgcodec_tpu_torch as t\n"
+        "import tinyimgcodec_tpu_torch.ops.encode2, "
+        "tinyimgcodec_tpu_torch.ops.place, "
+        "tinyimgcodec_tpu_torch.ops.exact_transform, "
+        "tinyimgcodec_tpu_torch.ops._build\n"
+        "img = (np.arange(64 * 64).reshape(64, 64) % 251).astype(np.uint8)\n"
+        "d = t.compress(img, 50, device='cpu')\n"
+        "assert t.decompress(d, backend='host').shape == img.shape\n"
+        "bad = [m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'jaxlib' or "
+        "m == 'tinyimgcodec_tpu' or m.startswith('tinyimgcodec_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('clean', len(d))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("clean")

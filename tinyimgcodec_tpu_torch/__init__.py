@@ -1,0 +1,54 @@
+"""tinyimgcodec_tpu_torch: the PyTorch/CUDA port of tinyimgcodec_tpu.
+
+A grayscale JPEG-style codec (8x8 DCT -> quantize -> zig-zag -> DC DPCM ->
+Annex K Huffman coding) whose encode path runs on an NVIDIA Hopper card
+through hand-written CUDA kernels (``csrc/``).  This package imports
+``torch``, ``numpy`` and ``scipy`` only; it shares no code with the JAX
+package, whose bytes it reproduces.
+
+Public API:
+
+- ``compress(image, quality) -> bytes`` and ``compress_batch(images,
+  quality) -> list[bytes]``: on the card by default (``device=None``);
+  without a card they raise unless ``device="cpu"`` or
+  ``backend="host"`` is passed.
+- ``decompress`` / ``decompress_batch``: ``backend="host"`` only so far.
+- ``encode(image, quality) -> CodecArrays`` / ``decode(CodecArrays)``:
+  the array-level host oracle.
+"""
+
+from __future__ import annotations
+
+from .constants import (
+    AC,
+    DC,
+    EOB,
+    LUMINANCE_QUANTIZATION_TABLE,
+    ZIGZAG_ORDER,
+    ZRL,
+)
+from .golden import CodecArrays
+from .golden import decode_arrays as decode
+from .golden import encode_arrays as encode
+from .api import compress, compress_batch, decompress, decompress_batch
+from .config import CodecConfig
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "encode",
+    "decode",
+    "compress",
+    "compress_batch",
+    "decompress",
+    "decompress_batch",
+    "CodecArrays",
+    "CodecConfig",
+    "LUMINANCE_QUANTIZATION_TABLE",
+    "ZIGZAG_ORDER",
+    "EOB",
+    "ZRL",
+    "DC",
+    "AC",
+    "__version__",
+]

@@ -1,0 +1,141 @@
+"""Top-level one-call codec API of the port.
+
+``compress`` / ``compress_batch`` mirror the JAX package's entry points and
+run on the CUDA card.  ``backend``:
+
+- ``"auto"`` / ``"torch"``: the device pipeline (``pipeline.py``) on
+  ``device`` (``None`` = the card; without a card this raises
+  ``RuntimeError`` -- there is no quiet fall-back to the CPU; pass
+  ``device="cpu"`` to run the kernels' plain versions);
+- ``"host"``: the float64 numpy/scipy oracle (``container.py``), which
+  needs no device.
+
+Not ported yet, each raising ``NotImplementedError``: dynamic Huffman
+tables on the device, and ``decompress`` / ``decompress_batch`` with any
+backend but ``"host"``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import container
+from .config import CodecConfig
+from .engine import Engine
+from .pipeline import compress_batch_device
+
+_BACKENDS = ("auto", "torch", "host")
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
+
+
+def compress(
+    image: np.ndarray,
+    quality: int = 50,
+    auto_generate_huffman_table: bool = False,
+    backend: str = "auto",
+    precision: str = "exact",
+    block_index: bool | None = None,
+    index_stride: int = 64,
+    config: CodecConfig | None = None,
+    device: str | torch.device | None = None,
+) -> bytes:
+    """Grayscale image (H, W) -> compressed bytes.
+
+    precision: "exact" (byte-identical to the float64 oracle) or "fast"
+    (float32 transform; rare rounding ties may differ).
+    block_index: append the TICX block-offset trailer (default on).
+    config: a validated CodecConfig; overrides the loose kwargs.
+    """
+    if config is None:
+        config = CodecConfig(
+            quality=quality,
+            precision=precision,
+            auto_huffman_table=auto_generate_huffman_table,
+            block_index=block_index,
+            index_stride=index_stride,
+        )
+    _check_backend(backend)
+    image = np.asarray(image)
+    if image.ndim != 2:
+        raise ValueError("expected a 2-D grayscale image")
+    if backend == "host":
+        return container.compress(
+            image, config.quality, config.auto_huffman_table,
+            block_index=config.block_index,
+            index_stride=config.index_stride,
+        )
+    return Engine(config.precision, device).compress(
+        image, config.quality,
+        auto_table=config.auto_huffman_table,
+        block_index=config.block_index,
+        index_stride=config.index_stride,
+    )
+
+
+def compress_batch(
+    images,
+    quality: int = 50,
+    backend: str = "auto",
+    precision: str = "exact",
+    block_index: bool | None = None,
+    index_stride: int = 64,
+    device: str | torch.device | None = None,
+) -> list[bytes]:
+    """(B, H, W) same-shaped grayscale images -> list of compressed bytes.
+
+    ``images`` may be a numpy array (any H, W >= 8; odd shapes are padded
+    and the header keeps the true size) or a block-aligned uint8
+    ``torch.Tensor`` already on the card, which skips the host->device
+    transfer.
+    """
+    config = CodecConfig(
+        quality=quality, precision=precision, block_index=block_index,
+        index_stride=index_stride,
+    )
+    _check_backend(backend)
+    if backend == "host":
+        if isinstance(images, torch.Tensor):
+            images = images.cpu().numpy()
+        return [
+            container.compress(
+                im, config.quality, block_index=config.block_index,
+                index_stride=config.index_stride,
+            )
+            for im in np.asarray(images)
+        ]
+    return compress_batch_device(
+        images, quality=config.quality, precision=config.precision,
+        block_index=config.block_index, index_stride=config.index_stride,
+        device=device,
+    )
+
+
+def _decode_backend(backend: str) -> None:
+    _check_backend(backend)
+    if backend != "host":
+        raise NotImplementedError(
+            "decode on the device waits for the decode slice of the port "
+            "(entropy decode + inverse transform); pass backend='host'"
+        )
+
+
+def decompress(data: bytes, backend: str = "auto") -> np.ndarray:
+    """Compressed bytes -> uint8 image (H, W).  Only ``backend="host"``
+    (the pure-python oracle decoder) exists so far."""
+    _decode_backend(backend)
+    return container.decompress(data)
+
+
+def decompress_batch(streams: list[bytes], backend: str = "auto"):
+    """Compressed streams -> decoded uint8 images: a stacked (B, H, W)
+    array for uniform shapes, else a list.  ``backend="host"`` only."""
+    _decode_backend(backend)
+    out = [container.decompress(s) for s in streams]
+    if len({o.shape for o in out}) > 1:
+        return out
+    return np.stack(out)

@@ -1,0 +1,269 @@
+"""Fused entropy encode: kernel wrapper and plain version.
+
+Input: (N, 64) uint8 block-major pixels (fast mode: the float32 transform
+runs inside) or, with ``from_zz=True``, (64, N) int32 coefficient-major
+quantized zig-zag coefficients (e.g. from ``ops/exact_transform.py``).
+N is B images of ``nb`` blocks each.
+
+Output, the interface of the JAX package's ``encode_pallas2``:
+
+- ``packed`` (N, 56) int32 bit patterns: each block's big-endian stream
+  words, already shifted to the bit phase the block has in the final
+  stream (so assembly is pure word placement, ``ops/place.py``);
+- ``meta`` (2, N) int32: row 0 the block's global stream bit offset (image
+  starts rounded up to a byte), row 1 its bit count;
+- ``overflow``: a 0-dim bool tensor, true when a DC difference needs more
+  than 11 bits or an AC coefficient more than 10 (outside the tables).
+
+Per block: DC DPCM against the previous block (reset at each image's
+first block), DC category code + magnitude bits; for every nonzero AC
+coefficient up to three 11-bit ZRL prefixes, the (run, size) code and the
+magnitude bits; EOB always.
+
+Replaces ``tinyimgcodec_tpu/ops/pallas_encode2.py`` (``_make_kernel``).
+On the card: ``csrc/encode2.cu`` (bound: bytes; see the note there).  The
+plain version below computes the same words with whole-tensor operations
+on int64 (torch has no 32-bit unsigned shifts on the CPU) and agrees with
+the kernel bit for bit on ``from_zz`` input.  On pixel input the two sum
+the float32 transform in different orders (the kernel pixel by pixel, the
+plain version through ``torch.matmul``), so a coefficient whose value
+before rounding sits on a tie may differ by one.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..tables import CodecTables
+from . import _build
+
+ROW_WORDS = 56
+SLOTS = 65  # DC + 63 AC + EOB
+_M32 = 0xFFFFFFFF
+
+launches = 0  # times encode2() launched the CUDA kernels
+launches_by_input = {"pixels": 0, "zz": 0}  # the same count, by input form
+transform_launches = 0  # times fast_coefficients() launched its kernel
+
+
+def _category(v: torch.Tensor) -> torch.Tensor:
+    """Bit length of |v| (0 for 0), for int64 values below 2**32."""
+    a = v.abs()
+    cat = torch.zeros_like(a)
+    for s in (16, 8, 4, 2, 1):
+        big = (a >> s) > 0
+        cat = cat + big * s
+        a = torch.where(big, a >> s, a)
+    return cat + (a > 0)
+
+
+def _magnitude(v: torch.Tensor, size: torch.Tensor) -> torch.Tensor:
+    return (v - (v < 0).to(v.dtype)) & ((1 << size) - 1)
+
+
+def _as_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 holding values in [0, 2**32) -> the same bits as int32."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def fast_coefficients_plain(pixels: torch.Tensor,
+                            tables: CodecTables) -> torch.Tensor:
+    """(N, 64) uint8 -> (64, N) int32: one float32 matrix product, the DC
+    level-shift offset, round half to even."""
+    y = pixels.to(torch.float32) @ tables.encode_matrix
+    y[:, 0] = y[:, 0] - tables.dc_offset
+    return torch.round(y).to(torch.int32).T.contiguous()
+
+
+def encode2_plain(x: torch.Tensor, tables: CodecTables, nb: int,
+                  from_zz: bool = False):
+    """Plain PyTorch version (any device) of :func:`encode2`."""
+    n = _check(x, tables, nb, from_zz)
+    dev = x.device
+    zz = (x if from_zz else fast_coefficients_plain(x, tables)).to(torch.int64)
+    dc_comb = tables.dc_comb.to(torch.int64) & _M32
+    ac_comb = tables.ac_comb.to(torch.int64) & _M32
+    zhi = tables.zrl_hi.to(torch.int64) & _M32
+    zlo = tables.zrl_lo.to(torch.int64) & _M32
+
+    # ---- DC slot --------------------------------------------------------
+    dc = zz[0]
+    prev = torch.roll(dc, 1)
+    prev[::nb] = 0
+    # 32-bit wrap-around of the difference, as the kernel computes it
+    diff = ((dc - prev + (1 << 31)) & _M32) - (1 << 31)
+    cat = _category(diff)
+    over = (cat > 11).any()
+    cat = cat.clamp(max=11)
+    comb = dc_comb[cat]
+    val = ((comb >> 8) << cat) | _magnitude(diff, cat)
+    dc_bits = (comb & 0xFF) + cat  # in [2, 20]
+    dc_w0 = (val << (32 - dc_bits)) & _M32
+
+    # ---- AC slots ---------------------------------------------------------
+    ac = zz[1:]  # (63, N)
+    nz = ac != 0
+    pos = torch.arange(63, device=dev).reshape(63, 1)
+    marked = torch.where(nz, pos, -1)
+    last_incl = torch.cummax(marked, dim=0).values
+    last_excl = torch.cat(
+        [torch.full((1, n), -1, dtype=torch.int64, device=dev),
+         last_incl[:-1]]
+    )
+    run = pos - last_excl - 1
+    size = _category(ac)
+    over = over | (nz & (size > 10)).any()
+    size = size.clamp(max=10)
+    z = (run >> 4).clamp(0, 3)
+    comb = ac_comb[((run & 15) * 11 + size).clamp(0, 175)]
+    val = ((comb >> 8) << size) | _magnitude(ac, size)
+    zrl_len = ac_comb[15 * 11] & 0xFF
+    end = z * zrl_len + (comb & 0xFF) + size  # <= 59
+    e2 = end - 32
+    in_w0 = torch.where(
+        e2 <= 0, (val << (32 - end).clamp(0, 31)) & _M32,
+        val >> e2.clamp(0, 31),
+    )
+    in_w1 = torch.where(
+        e2 <= 0, torch.zeros_like(val), (val << (32 - e2).clamp(0, 31)) & _M32
+    )
+    ac_w0 = (zhi[z] | in_w0) * nz
+    ac_w1 = (zlo[z] | in_w1) * nz
+    ac_bits = end * nz
+
+    # ---- slots -> block-local bit offsets ---------------------------------
+    eob = ac_comb[0]
+    eob_len = eob & 0xFF
+    eob_w0 = ((eob >> 8) << (32 - eob_len)) & _M32
+    zero = torch.zeros((1, n), dtype=torch.int64, device=dev)
+    sw0 = torch.cat([dc_w0.reshape(1, n), ac_w0, zero + eob_w0])
+    sw1 = torch.cat([zero, ac_w1, zero])
+    slen = torch.cat([dc_bits.reshape(1, n), ac_bits, zero + eob_len])
+    csum = torch.cumsum(slen, dim=0)
+    soff = csum - slen  # (65, N) exclusive
+    blk_bits = csum[-1]  # (N,)
+
+    # ---- global offsets: scan inside each image, byte-aligned starts ------
+    per_img = blk_bits.reshape(-1, nb)
+    local = torch.cumsum(per_img, dim=1) - per_img
+    starts, s = [], 0
+    for total in per_img.sum(dim=1).tolist():
+        starts.append(s)
+        s = (s + total + 7) & ~7
+    off = (
+        local + torch.tensor(starts, dtype=torch.int64, device=dev).reshape(-1, 1)
+    ).reshape(n)
+
+    # ---- place every slot at (block phase + slot offset) ------------------
+    so = soff + (off & 31).reshape(1, n)
+    sh = so & 31
+    has = sh > 0
+    nsh = (32 - sh) & 31
+    c0 = sw0 >> sh
+    c1 = (((sw0 << nsh) & _M32) * has) | (sw1 >> sh)
+    c2 = ((sw1 << nsh) & _M32) * has
+    tgt = (so >> 5).T.contiguous()  # (N, 65)
+    rows = torch.zeros((n, ROW_WORDS + 2), dtype=torch.int64, device=dev)
+    for k, c in enumerate((c0, c1, c2)):  # disjoint bits: ADD == OR
+        rows.scatter_add_(1, tgt + k, c.T.contiguous())
+    packed = _as_i32(rows[:, :ROW_WORDS].contiguous())
+    meta = torch.stack([off, blk_bits]).to(torch.int32)
+    return packed, meta, over
+
+
+def _check(x: torch.Tensor, tables: CodecTables, nb: int,
+           from_zz: bool) -> int:
+    if from_zz:
+        if x.dtype != torch.int32 or x.ndim != 2 or x.shape[0] != 64:
+            raise ValueError("from_zz input must be a (64, N) int32 tensor")
+        n = x.shape[1]
+    else:
+        if x.dtype != torch.uint8 or x.ndim != 2 or x.shape[1] != 64:
+            raise ValueError("pixel input must be an (N, 64) uint8 tensor")
+        n = x.shape[0]
+    if tables.device != x.device:
+        raise ValueError("tables and input lie on different devices")
+    if nb < 1 or n == 0 or n % nb:
+        raise ValueError(f"N={n} is not a positive multiple of nb={nb}")
+    return n
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("encode2")
+    fn = lib.encode2_launch
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [
+            p, ctypes.c_int, p, ctypes.c_float, p, p, p, p,
+            p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, p,
+        ]
+        fn.restype = ctypes.c_int
+        ft = lib.fast_transform_launch
+        ft.argtypes = [p, p, ctypes.c_float, p, ctypes.c_int, p]
+        ft.restype = ctypes.c_int
+    return lib
+
+
+def fast_coefficients(pixels: torch.Tensor,
+                      tables: CodecTables) -> torch.Tensor:
+    """The float32 transform pass of :func:`encode2` on its own: (N, 64)
+    uint8 -> (64, N) int32.  Lets a test hold the kernel's coefficients
+    against the plain version's before entropy coding hides them."""
+    n = _check(pixels, tables, 1, False)
+    if pixels.device.type == "cpu":
+        return fast_coefficients_plain(pixels, tables)
+    if pixels.device.type != "cuda":
+        raise ValueError(f"unsupported device {pixels.device}")
+    global transform_launches
+    pixels = pixels.contiguous()
+    zz = torch.empty((64, n), dtype=torch.int32, device=pixels.device)
+    lib = _lib()
+    with torch.cuda.device(pixels.device):
+        err = lib.fast_transform_launch(
+            pixels.data_ptr(), tables.encode_matrix.data_ptr(),
+            tables.dc_offset, zz.data_ptr(), n,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "encode2 fast transform")
+    transform_launches += 1
+    return zz
+
+
+def encode2(x: torch.Tensor, tables: CodecTables, nb: int,
+            from_zz: bool = False):
+    """See the module docstring.  Returns ``(packed, meta, overflow)``.
+    CUDA tensors go to the kernels, CPU tensors to the plain version;
+    nothing else is tried."""
+    if x.device.type == "cpu":
+        return encode2_plain(x, tables, nb, from_zz)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    global launches
+    n = _check(x, tables, nb, from_zz)
+    x = x.contiguous()
+    dev = x.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    packed = torch.empty((n, ROW_WORDS), **i32)
+    meta = torch.empty((2, n), **i32)
+    img_bits = torch.empty((n // nb,), **i32)
+    starts = torch.empty((n // nb + 1,), **i32)
+    over = torch.zeros((1,), **i32)
+    zz_scratch = None if from_zz else torch.empty((64, n), **i32)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.encode2_launch(
+            x.data_ptr(), int(from_zz), tables.encode_matrix.data_ptr(),
+            tables.dc_offset, tables.dc_comb.data_ptr(),
+            tables.ac_comb.data_ptr(), tables.zrl_hi.data_ptr(),
+            tables.zrl_lo.data_ptr(),
+            None if from_zz else zz_scratch.data_ptr(),
+            packed.data_ptr(), meta.data_ptr(), img_bits.data_ptr(),
+            starts.data_ptr(), over.data_ptr(), n, int(nb),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "encode2")
+    launches += 1
+    launches_by_input["zz" if from_zz else "pixels"] += 1
+    return packed, meta, over[0] > 0

@@ -1,0 +1,107 @@
+"""Word placement: kernel wrapper and plain version.
+
+Takes the encode kernel's outputs -- (N, 56) block rows whose words are
+already shifted to their final bit phase, and the (2, N) meta of global
+bit offsets and bit counts -- and ORs row b into one zeroed stream at word
+``offset_b >> 5``.  Returns ``(stream_words (cap_words,) int32 bit
+patterns, image_start_bits (B,), total_bits, overflow)`` like the JAX
+package's ``assemble_cm``.
+
+Replaces the three placement kernel generations of
+``tinyimgcodec_tpu/ops/pallas_place.py`` (``_make_kernel_v4``,
+``_make_kernel_v3``, ``_make_kernel``), which are one function.  On the
+card it is a scatter with ``atomicOr`` (``csrc/place.cu``); bound: bytes,
+and the kernel reads only the words a block owns.
+
+Overflow is exactly ``total_bits > cap_words * 32``.  A word that would
+land at or beyond ``cap_words`` is dropped, never moved onto earlier data.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+ROW_WORDS = 56
+
+launches = 0  # times the CUDA kernel was launched through the wrapper
+
+
+def _check(packed: torch.Tensor, meta: torch.Tensor, nb: int) -> int:
+    n = packed.shape[0]
+    if packed.dtype != torch.int32 or packed.shape != (n, ROW_WORDS):
+        raise ValueError("packed must be an (N, 56) int32 tensor")
+    if meta.dtype != torch.int32 or meta.shape != (2, n):
+        raise ValueError("meta must be a (2, N) int32 tensor")
+    if meta.device != packed.device:
+        raise ValueError("packed and meta lie on different devices")
+    if n == 0 or n % nb:
+        raise ValueError(f"N={n} is not a positive multiple of nb={nb}")
+    return n
+
+
+def _summary(meta: torch.Tensor, nb: int, cap_words: int):
+    off = meta[0]
+    total_bits = off[-1] + meta[1, -1]
+    starts = off[::nb]
+    overflow = total_bits > cap_words * 32
+    return starts, total_bits, overflow
+
+
+def place_plain(packed: torch.Tensor, meta: torch.Tensor, nb: int,
+                cap_words: int):
+    """Plain PyTorch version (any device): an ``index_add_`` of every row
+    word into a zeroed stream (blocks' bits never overlap, so ADD == OR);
+    words are carried as int64."""
+    n = _check(packed, meta, nb)
+    dev = packed.device
+    words = packed.to(torch.int64) & 0xFFFFFFFF
+    idx = (meta[0].to(torch.int64) >> 5).reshape(n, 1) + torch.arange(
+        ROW_WORDS, device=dev
+    ).reshape(1, ROW_WORDS)
+    keep = (idx < cap_words) & (idx >= 0)
+    stream = torch.zeros(cap_words, dtype=torch.int64, device=dev)
+    stream.index_add_(0, idx[keep], words[keep])
+    stream = torch.where(stream >= 1 << 31, stream - (1 << 32), stream)
+    return (stream.to(torch.int32),) + _summary(meta, nb, cap_words)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("place")
+    fn = lib.place_launch
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def place(packed: torch.Tensor, meta: torch.Tensor, nb: int, cap_words: int):
+    """See the module docstring.  CUDA tensors go to the kernel, CPU
+    tensors to the plain version; nothing else is tried."""
+    if packed.device.type == "cpu":
+        return place_plain(packed, meta, nb, cap_words)
+    if packed.device.type != "cuda":
+        raise ValueError(f"unsupported device {packed.device}")
+    global launches
+    n = _check(packed, meta, nb)
+    cap_words = int(cap_words)
+    if not 0 < cap_words < 1 << 31:
+        raise ValueError(f"cap_words {cap_words} out of range")
+    packed = packed.contiguous()
+    meta = meta.contiguous()
+    stream = torch.zeros(cap_words, dtype=torch.int32, device=packed.device)
+    lib = _lib()
+    with torch.cuda.device(packed.device):
+        err = lib.place_launch(
+            packed.data_ptr(), meta[0].data_ptr(), meta[1].data_ptr(),
+            stream.data_ptr(), n, cap_words,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "place")
+    launches += 1
+    return (stream,) + _summary(meta, nb, cap_words)
