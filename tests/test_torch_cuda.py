@@ -12,11 +12,18 @@ import numpy as np
 import pytest
 import torch
 
-from tinyimgcodec_tpu_torch import compress_batch, container
-from tinyimgcodec_tpu_torch.ops import encode2, exact_transform, place
+from tinyimgcodec_tpu_torch import (
+    compress_batch, container, decompress, decompress_batch,
+)
+from tinyimgcodec_tpu_torch.engine import Engine
+from tinyimgcodec_tpu_torch.ops import (
+    encode1, encode2, entropy_decode, exact_transform, place, stitch,
+)
 from tinyimgcodec_tpu_torch.ops import transform
-from tinyimgcodec_tpu_torch.pipeline import exact_coefficients
-from tinyimgcodec_tpu_torch.tables import CodecTables
+from tinyimgcodec_tpu_torch.pipeline import (
+    compress_batch_device, exact_coefficients,
+)
+from tinyimgcodec_tpu_torch.tables import CodecTables, DecodeTables
 
 from conftest import synthetic_image
 
@@ -97,3 +104,112 @@ def test_batch_on_the_card_equals_the_oracle(cuda):
     out = compress_batch(imgs, 50)  # default device: the card
     for i in range(2):
         assert out[i] == container.compress(imgs[i], 50, block_index=True)
+
+
+@pytest.mark.parametrize("quality, noise", [(50, False), (90, True)])
+def test_encode1_and_stitch_equal_plain_versions(cuda, quality, noise):
+    if noise:
+        imgs = np.random.RandomState(2).randint(
+            0, 256, (3, 40, 72)).astype(np.uint8)
+    else:
+        imgs = np.stack([synthetic_image(40, 72, seed=s) for s in (1, 2, 3)])
+    t = CodecTables.build(quality, cuda)
+    blocks = _blocks(imgs, cuda)
+    n = blocks.shape[0]
+    nb = n // 3
+    before = (encode1.launches, stitch.launches)
+    zz = exact_coefficients(blocks, quality, t).T.contiguous()  # (N, 64)
+    a = encode1.encode1(zz, t, nb, from_zz=True)
+    b = encode1.encode1_plain(zz, t, nb, from_zz=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    # pixel input: the plain entropy coding of the kernel's own coefficients
+    zk = encode2.fast_coefficients(blocks, t).T.contiguous()
+    c = encode1.encode1(blocks, t, nb)
+    d = encode1.encode1_plain(zk, t, nb, from_zz=True)
+    assert all(torch.equal(x, y) for x, y in zip(c, d))
+    total = int(stitch.stitch_plain(a[0], a[1], nb, n * 52)[2])
+    exact = -(-total // 32)
+    for cap in (n * 52, exact, exact - 1, 7):
+        k = stitch.stitch(a[0], a[1], nb, cap)
+        p = stitch.stitch_plain(a[0], a[1], nb, cap)
+        assert all(torch.equal(x, y) for x, y in zip(k, p))
+        assert int(k[3]) == (2 if cap < exact else 0)
+    after = (encode1.launches, stitch.launches)
+    assert after == (before[0] + 2, before[1] + 4)
+
+
+def test_stitch_capacity_of_2_to_the_31_bits_is_no_overflow(cuda):
+    imgs = np.stack([synthetic_image(40, 72, seed=s) for s in (1, 2)])
+    t = CodecTables.build(50, cuda)
+    blocks = _blocks(imgs, cuda)
+    n = blocks.shape[0]
+    words, bits, _ = encode1.encode1(blocks, t, n // 2)
+    small = stitch.stitch(words, bits, n // 2, n * 52)
+    big = stitch.stitch(words, bits, n // 2, 1 << 26)  # 2**31 bits
+    assert int(big[3]) == 0 and int(small[3]) == 0
+    assert int(big[2]) == int(small[2])
+    assert torch.equal(big[0][: n * 52], small[0])
+    assert not bool(big[0][n * 52:].any())
+
+
+def test_v1_bytes_equal_v2_bytes_on_the_card(cuda):
+    imgs = np.stack([synthetic_image(61, 83, seed=s) for s in (6, 7, 8)])
+    v2 = compress_batch_device(imgs, 50, precision="fast")
+    v1 = compress_batch_device(imgs, 50, precision="fast", version="v1")
+    assert v1 == v2
+
+
+def _decode_both(streams, cuda, quality=50):
+    prep = entropy_decode.prepare_batch(streams)
+    if prep is None:  # the stream's own bookkeeping refused the batch
+        return None
+    keys = ("chunk_start", "chunk_blocks", "chunk_block_base",
+            "chunk_end_lo", "chunk_end_hi")
+    t = DecodeTables.build(quality, False, cuda, huffman=prep["tables"])
+    args = [torch.from_numpy(prep["words"].view(np.int32)).to(cuda)] + [
+        torch.from_numpy(prep[k]).to(cuda) for k in keys]
+    k = entropy_decode.entropy_decode_chunks(*args, prep["nb_total"], t)
+    p = entropy_decode.entropy_decode_chunks_plain(*args, prep["nb_total"], t)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    return k[1].cpu().numpy()
+
+
+@pytest.mark.parametrize("quality, stride, auto",
+                         [(50, 64, False), (90, 8, False), (50, 16, True)])
+def test_entropy_decode_equals_plain_version(cuda, quality, stride, auto):
+    imgs = [synthetic_image(61, 83, seed=s) for s in (3, 3 if auto else 4)]
+    streams = [container.compress(im, quality, auto, block_index=True,
+                                  index_stride=stride) for im in imgs]
+    before = entropy_decode.launches
+    assert _decode_both(streams, cuda, quality).all()
+    assert entropy_decode.launches == before + 1
+    # corrupt: flipped bytes, and a payload cut short under its trailer
+    failed = 0
+    start = container.parse_block_index(streams[0], 88)[2]
+    for pos in range(start - 400, start, 37):
+        mut = bytearray(streams[0])
+        mut[pos] ^= 0xFF
+        ok = _decode_both([bytes(mut), streams[1]], cuda, quality)
+        failed += ok is not None and not ok.all()
+    assert failed
+    cut = streams[0][: start - 16] + streams[0][start:]
+    ok = _decode_both([cut, streams[1]], cuda, quality)
+    assert ok is None or not ok.all()
+
+
+def test_decode_on_the_card_equals_the_oracle(cuda):
+    imgs = [synthetic_image(61, 83, seed=s) for s in (6, 7, 8)]
+    streams = [container.compress(im, 50, block_index=True) for im in imgs]
+    out = decompress_batch(streams)  # default device: the card
+    for o, s in zip(out, streams):
+        assert np.array_equal(o, container.decompress(s))
+    mut = bytearray(streams[1])
+    mut[40] ^= 0xFF
+    plain = container.compress(imgs[0], 50)
+    eng = Engine("exact")
+    for batch in ([streams[0], bytes(mut)], [plain, streams[2]]):
+        got = eng.decompress_batch(batch)
+        assert sum(eng.decode_stats.values()) == 2
+        for o, s in zip(got, batch):
+            assert np.array_equal(o, container.decompress(s))
+    assert np.array_equal(decompress(plain), container.decompress(plain))

@@ -185,3 +185,56 @@ def test_oversize_batch_is_refused_loudly():
     big = np.zeros((1, 4096, 4104), np.uint8)
     with pytest.raises(NotImplementedError, match="tiled"):
         compress_batch_device(big, 50, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "imgs, quality",
+    [(NATURAL, 50), (NATURAL, 10), (NOISE, 90),
+     (np.stack([synthetic_image(61, 59, seed=s) for s in (67, 68, 69)]), 75)],
+)
+def test_v1_bytes_equal_v2_fast_bytes(imgs, quality):
+    """The v1 path (encode1 + stitch) and the v2 path (encode2 + place)
+    write the same fast-mode bytes -- also through the capacity retry
+    (noise at quality 90 overflows the 4 bpp budget)."""
+    v2 = compress_batch_device(imgs, quality, precision="fast", device="cpu")
+    v1 = compress_batch_device(imgs, quality, precision="fast", device="cpu",
+                               version="v1")
+    assert v1 == v2
+    for im, s in zip(imgs, v1):
+        assert tcontainer.decompress(s).shape == im.shape
+
+
+def test_v1_cross_decodes_and_matches_jax_v1_psnr():
+    mine = compress_batch_device(NATURAL, 50, precision="fast", device="cpu",
+                                 version="v1")
+    theirs = compress_batch_pallas(NATURAL, 50, bt=64, interpret=True,
+                                   precision="fast", version="v1")
+    for i in range(2):
+        a = jcontainer.decompress(mine[i])
+        b = jcontainer.decompress(theirs[i])
+        assert abs(psnr(NATURAL[i], a) - psnr(NATURAL[i], b)) <= 0.01
+
+
+def test_exact_mode_ignores_version_as_in_jax():
+    a = compress_batch_device(NATURAL, 50, precision="exact", device="cpu",
+                              version="v1")
+    assert a == [jcontainer.compress(im, 50) for im in NATURAL]
+
+
+def test_v1_refuses_the_block_index_and_unknown_versions():
+    with pytest.raises(ValueError, match="block_index requires the v2"):
+        compress_batch_device(NATURAL, 50, precision="fast", device="cpu",
+                              version="v1", block_index=True)
+    with pytest.raises(ValueError, match="block_index requires the v2"):
+        compress_batch_pallas(NATURAL, 50, bt=64, interpret=True,
+                              version="v1", block_index=True)
+    with pytest.raises(ValueError, match="unknown version"):
+        compress_batch_device(NATURAL, 50, device="cpu", version="v3")
+
+
+def test_v1_table_range_error():
+    y, x = np.mgrid[0:64, 0:64]
+    board = ((x % 8 >= 4) * 255).astype(np.uint8)
+    with pytest.raises(ValueError, match="out of Huffman table range"):
+        compress_batch_device(np.stack([board, board]), 99, precision="fast",
+                              device="cpu", version="v1")

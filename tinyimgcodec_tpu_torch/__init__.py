@@ -1,8 +1,8 @@
 """tinyimgcodec_tpu_torch: the PyTorch/CUDA port of tinyimgcodec_tpu.
 
 A grayscale JPEG-style codec (8x8 DCT -> quantize -> zig-zag -> DC DPCM ->
-Annex K Huffman coding) whose encode path runs on an NVIDIA Hopper card
-through hand-written CUDA kernels (``csrc/``).  This package imports
+Annex K Huffman coding) whose encode and decode paths run on an NVIDIA
+Hopper card through hand-written CUDA kernels (``csrc/``).  This package imports
 ``torch``, ``numpy`` and ``scipy`` only; it shares no code with the JAX
 package, whose bytes it reproduces.
 
@@ -12,7 +12,8 @@ Public API:
   quality) -> list[bytes]``: on the card by default (``device=None``);
   without a card they raise unless ``device="cpu"`` or
   ``backend="host"`` is passed.
-- ``decompress`` / ``decompress_batch``: ``backend="host"`` only so far.
+- ``decompress(data) -> image`` and ``decompress_batch(streams)``: the
+  same device rule; TICX-indexed streams are entropy-decoded on the card.
 - ``encode(image, quality) -> CodecArrays`` / ``decode(CodecArrays)``:
   the array-level host oracle.
 """

@@ -1,7 +1,8 @@
 """Top-level one-call codec API of the port.
 
-``compress`` / ``compress_batch`` mirror the JAX package's entry points and
-run on the CUDA card.  ``backend``:
+``compress`` / ``compress_batch`` / ``decompress`` / ``decompress_batch``
+mirror the JAX package's entry points and run on the CUDA card.
+``backend``:
 
 - ``"auto"`` / ``"torch"``: the device pipeline (``pipeline.py``) on
   ``device`` (``None`` = the card; without a card this raises
@@ -10,9 +11,11 @@ run on the CUDA card.  ``backend``:
 - ``"host"``: the float64 numpy/scipy oracle (``container.py``), which
   needs no device.
 
-Not ported yet, each raising ``NotImplementedError``: dynamic Huffman
-tables on the device, and ``decompress`` / ``decompress_batch`` with any
-backend but ``"host"``.
+Decode takes TICX-indexed streams through the entropy decode kernel and
+everything else through host entropy decode plus the device transform
+(``engine.py`` says which stream goes where).  Not ported yet, raising
+``NotImplementedError``: encoding with dynamic Huffman tables on the
+device (such streams do decode).
 """
 
 from __future__ import annotations
@@ -115,27 +118,36 @@ def compress_batch(
     )
 
 
-def _decode_backend(backend: str) -> None:
+def decompress(data: bytes, backend: str = "auto",
+               precision: str = "exact",
+               device: str | torch.device | None = None) -> np.ndarray:
+    """Compressed bytes -> uint8 image (H, W).
+
+    precision: "exact" (the float64 oracle's pixels) or "fast" (float32
+    inverse transform; a pixel may differ by one level).
+    """
     _check_backend(backend)
-    if backend != "host":
-        raise NotImplementedError(
-            "decode on the device waits for the decode slice of the port "
-            "(entropy decode + inverse transform); pass backend='host'"
-        )
+    if backend == "host":
+        return container.decompress(data)
+    return Engine(precision, device).decompress(data)
 
 
-def decompress(data: bytes, backend: str = "auto") -> np.ndarray:
-    """Compressed bytes -> uint8 image (H, W).  Only ``backend="host"``
-    (the pure-python oracle decoder) exists so far."""
-    _decode_backend(backend)
-    return container.decompress(data)
+def decompress_batch(streams: list[bytes], backend: str = "auto",
+                     precision: str = "exact",
+                     device: str | torch.device | None = None):
+    """Compressed streams -> decoded uint8 images.
 
-
-def decompress_batch(streams: list[bytes], backend: str = "auto"):
-    """Compressed streams -> decoded uint8 images: a stacked (B, H, W)
-    array for uniform shapes, else a list.  ``backend="host"`` only."""
-    _decode_backend(backend)
-    out = [container.decompress(s) for s in streams]
-    if len({o.shape for o in out}) > 1:
-        return out
-    return np.stack(out)
+    TICX-indexed uniform batches (standard tables, or one shared
+    standard-range dynamic table) are entropy-decoded on the device, chunk
+    by chunk in parallel; other streams are entropy-decoded on the host
+    and transformed on the device.  Uniform batches return a stacked
+    ``(B, H, W)`` array; mixed shapes are grouped into uniform runs and a
+    list of (H, W) arrays comes back in input order.
+    """
+    _check_backend(backend)
+    if backend == "host":
+        out = [container.decompress(s) for s in streams]
+        if len({o.shape for o in out}) > 1:
+            return out
+        return np.stack(out)
+    return Engine(precision, device).decompress_batch(streams)

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use into ``build/`` at the root of the checkout (next to the
 package), into a shared library whose file name carries a hash of the
-sources and the flags; ``ctypes`` loads it.  There is no fallback: a build
+source, of every header (``*.cuh``) beside it and of the flags, so an edit
+to a shared header rebuilds every kernel; ``ctypes`` loads it.  There is no fallback: a build
 that fails raises, with the compiler's output in the message.
 
 ``build_all`` starts one ``nvcc`` per source at the same time, which is
@@ -27,7 +28,8 @@ BUILD_DIR = Path(
         Path(__file__).resolve().parents[2] / "build",
     )
 )
-KERNELS = ("exact_transform", "encode2", "place")
+KERNELS = ("exact_transform", "encode2", "place", "encode1", "stitch",
+           "entropy_decode")
 
 # -fmad=false: the kernels are held bit for bit against plain PyTorch
 # versions that round after every multiply and every add; a contracted

@@ -77,12 +77,16 @@ def fast_coefficients_plain(pixels: torch.Tensor,
     return torch.round(y).to(torch.int32).T.contiguous()
 
 
-def encode2_plain(x: torch.Tensor, tables: CodecTables, nb: int,
-                  from_zz: bool = False):
-    """Plain PyTorch version (any device) of :func:`encode2`."""
-    n = _check(x, tables, nb, from_zz)
-    dev = x.device
-    zz = (x if from_zz else fast_coefficients_plain(x, tables)).to(torch.int64)
+def block_slots(zz: torch.Tensor, tables: CodecTables, nb: int):
+    """Symbols of every block as 65 slots (DC, 63 AC positions, EOB).
+
+    ``zz`` (64, N) int64 coefficients.  Returns ``(sw0, sw1, soff,
+    blk_bits, over)``: each slot's bits left-aligned in two 32-bit words
+    (65, N) (an empty slot is zero), its exclusive bit offset inside the
+    block (65, N), the block's bit count (N,) and the table-range flag.
+    Shared by the plain versions of both encode kernels."""
+    n = zz.shape[1]
+    dev = zz.device
     dc_comb = tables.dc_comb.to(torch.int64) & _M32
     ac_comb = tables.ac_comb.to(torch.int64) & _M32
     zhi = tables.zrl_hi.to(torch.int64) & _M32
@@ -142,22 +146,15 @@ def encode2_plain(x: torch.Tensor, tables: CodecTables, nb: int,
     sw1 = torch.cat([zero, ac_w1, zero])
     slen = torch.cat([dc_bits.reshape(1, n), ac_bits, zero + eob_len])
     csum = torch.cumsum(slen, dim=0)
-    soff = csum - slen  # (65, N) exclusive
-    blk_bits = csum[-1]  # (N,)
+    return sw0, sw1, csum - slen, csum[-1], over
 
-    # ---- global offsets: scan inside each image, byte-aligned starts ------
-    per_img = blk_bits.reshape(-1, nb)
-    local = torch.cumsum(per_img, dim=1) - per_img
-    starts, s = [], 0
-    for total in per_img.sum(dim=1).tolist():
-        starts.append(s)
-        s = (s + total + 7) & ~7
-    off = (
-        local + torch.tensor(starts, dtype=torch.int64, device=dev).reshape(-1, 1)
-    ).reshape(n)
 
-    # ---- place every slot at (block phase + slot offset) ------------------
-    so = soff + (off & 31).reshape(1, n)
+def pack_slots(sw0: torch.Tensor, sw1: torch.Tensor, soff: torch.Tensor,
+               phase: torch.Tensor, row_words: int) -> torch.Tensor:
+    """Place every slot of :func:`block_slots` at bit ``phase + soff`` of
+    its block's row: (N, row_words) int32 bit patterns."""
+    n = sw0.shape[1]
+    so = soff + phase.reshape(1, n)
     sh = so & 31
     has = sh > 0
     nsh = (32 - sh) & 31
@@ -165,10 +162,38 @@ def encode2_plain(x: torch.Tensor, tables: CodecTables, nb: int,
     c1 = (((sw0 << nsh) & _M32) * has) | (sw1 >> sh)
     c2 = ((sw1 << nsh) & _M32) * has
     tgt = (so >> 5).T.contiguous()  # (N, 65)
-    rows = torch.zeros((n, ROW_WORDS + 2), dtype=torch.int64, device=dev)
+    rows = torch.zeros((n, row_words + 2), dtype=torch.int64,
+                       device=sw0.device)
     for k, c in enumerate((c0, c1, c2)):  # disjoint bits: ADD == OR
         rows.scatter_add_(1, tgt + k, c.T.contiguous())
-    packed = _as_i32(rows[:, :ROW_WORDS].contiguous())
+    return _as_i32(rows[:, :row_words].contiguous())
+
+
+def image_offsets(blk_bits: torch.Tensor, nb: int):
+    """Per-block global bit offsets (N,) int64 with every image's start
+    rounded up to a byte, the image starts (B,) and the total bits (the
+    last image is not padded)."""
+    per_img = blk_bits.reshape(-1, nb)
+    local = torch.cumsum(per_img, dim=1) - per_img
+    starts, s = [], 0
+    sums = per_img.sum(dim=1).tolist()
+    for i, bits in enumerate(sums):
+        starts.append(s)
+        s += bits
+        if i + 1 < len(sums):
+            s = (s + 7) & ~7
+    starts_t = torch.tensor(starts, dtype=torch.int64, device=blk_bits.device)
+    return (local + starts_t.reshape(-1, 1)).reshape(-1), starts_t, s
+
+
+def encode2_plain(x: torch.Tensor, tables: CodecTables, nb: int,
+                  from_zz: bool = False):
+    """Plain PyTorch version (any device) of :func:`encode2`."""
+    _check(x, tables, nb, from_zz)
+    zz = (x if from_zz else fast_coefficients_plain(x, tables)).to(torch.int64)
+    sw0, sw1, soff, blk_bits, over = block_slots(zz, tables, nb)
+    off, _, _ = image_offsets(blk_bits, nb)
+    packed = pack_slots(sw0, sw1, soff, off & 31, ROW_WORDS)
     meta = torch.stack([off, blk_bits]).to(torch.int32)
     return packed, meta, over
 

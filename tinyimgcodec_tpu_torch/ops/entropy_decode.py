@@ -1,0 +1,423 @@
+"""Chunk-parallel entropy decode of TICX-indexed streams.
+
+The payload's variable-length codes force a serial bit cursor; the TICX
+trailer records the payload bit offset of every ``stride``-th block, so a
+stream is ``ceil(nb / stride)`` chunks that decode independently.  This
+module decodes all chunks of a whole batch at once on the device.
+
+Host half (NumPy only): :func:`canonical_tables` (admission check of a
+stream's own Huffman table), :func:`prepare_batch` (streams -> payload
+words and chunk arrays, or ``None`` when the batch cannot take this path).
+
+Device half: :func:`entropy_decode_chunks` -> ``(zz (nb_total, 64) int32
+zig-zag coefficients with the DPCM'd DC in column 0, ok (C,) bool)``.  On
+the card it launches ``csrc/entropy_decode.cu``, one thread per chunk.
+In the JAX package this function is an XLA program and not a Pallas
+kernel; its slot budgets, resume passes, paired window tables and one-hot
+matmul reassembly are mechanism of that machine and have no counterpart
+here.
+
+Validation (the same rule as the JAX package's): a chunk is ``ok`` only if
+it decoded exactly its block count, every coefficient landed at a zig-zag
+position in [0, 63], every code matched the table, and its final cursor
+lies in ``[end_lo, end_hi]`` (the next chunk's recorded offset; for an
+image's last chunk the byte-alignment pad).  A chunk stops at its first
+violation; what it wrote before stays in ``zz``, and callers must not use
+the blocks of a chunk that is not ``ok``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..tables import DecodeTables
+from . import _build
+
+# absolute per-block symbol bound: 1 DC + 63 AC values + <= 3 ZRL + EOB
+MAX_BLOCK_SYMBOLS = 68
+
+# Chunk bit offsets are int32 tensors, so a batch's payload must stay below
+# 2**31 bits (256 MiB); the kernel's own cursor is 64-bit and cannot wrap.
+MAX_PAYLOAD_BITS = 2 ** 31
+
+launches = 0  # times the CUDA kernel was launched through the wrapper
+
+
+# ------------------------------------------------------------- host half
+
+
+def canonical_tables(tables: dict):
+    """Parsed string-code tables -> ((dc), (ac)) in T.81 F.2.2.3 form.
+
+    Host-side admission check for device decode of dynamic-table streams
+    (``container.read_huffman_table`` output).  Returns ``(mincode,
+    maxcode, valptr, huffval)`` tuples as
+    ``tables.standard_decode_tables`` (huffval zero-padded to 256), or
+    ``None`` when the table cannot drive the device decoder:
+
+    * a code longer than 16 bits (the decoder matches in a 16-bit window);
+    * codes that are not canonical (per-length consecutive, numbered by
+      the standard shift law): the first-match length rule is only correct
+      for canonical codes, which this codec's own table construction
+      always emits;
+    * extended-range symbols (DC category > 11 / AC size > 10), the same
+      standard-range bound as the device encoder.
+    """
+    from ..constants import AC as AC_KEY
+    from ..constants import DC as DC_KEY
+
+    def build(code_map, sym_value):
+        if not code_map:
+            return None
+        items = []
+        for sym, s in code_map.items():
+            l = len(s)
+            if l < 1 or l > 16:
+                return None
+            v = sym_value(sym)
+            if v is None:
+                return None
+            items.append((l, int(s, 2), v))
+        items.sort()
+        mincode = np.zeros(17, np.int32)
+        maxcode = np.full(17, -1, np.int32)
+        valptr = np.zeros(17, np.int32)
+        huffval = np.zeros(256, np.int32)
+        code = 0
+        prev_l = 0
+        for k, (l, c, v) in enumerate(items):
+            code <<= l - prev_l
+            prev_l = l
+            if c != code:  # not the canonical numbering
+                return None
+            if maxcode[l] < 0:
+                mincode[l] = code
+                valptr[l] = k
+            maxcode[l] = code
+            huffval[k] = v
+            code += 1
+        return mincode, maxcode, valptr, huffval
+
+    def dc_sym(cat):
+        return cat if isinstance(cat, int) and 0 <= cat <= 11 else None
+
+    def ac_sym(rs):
+        try:
+            run, size = rs
+        except (TypeError, ValueError):
+            return None
+        if 0 <= run <= 15 and 0 <= size <= 10:
+            return (run << 4) | size
+        return None
+
+    dc = build(tables[DC_KEY], dc_sym)
+    ac = build(tables[AC_KEY], ac_sym)
+    if dc is None or ac is None:
+        return None
+    return dc, ac
+
+
+def prepare_batch(streams: list[bytes]):
+    """Host-side prep: uniform TICX streams -> device input arrays.
+
+    Returns ``None`` if any stream is ineligible (no or invalid TICX
+    trailer, non-uniform shape / quality / flags / stride / tables, an
+    inadmissible dynamic table -- :func:`canonical_tables` -- or a payload
+    of ``MAX_PAYLOAD_BITS`` or more), else a dict of numpy arrays and
+    metadata for :func:`entropy_decode_chunks`.  Dynamic-table streams
+    contribute a ``"tables"`` entry (the canonical decode tuples) and have
+    their payloads realigned to a byte here (the table segment ends
+    off-byte); TICX offsets are payload-relative in both layouts, so the
+    chunk arithmetic is the same.
+    """
+    from .. import container
+    from ..bitstream import BitReader, bits_to_bytes
+    from ..constants import (
+        FLAG_CUSTOM_TABLE,
+        FLAG_SCALED_DCT,
+        HEADER_BYTES,
+    )
+
+    if not streams:
+        return None
+    metas = []
+    h0 = None
+    tables0 = None
+    tabs0 = None
+    for data in streams:
+        try:
+            h, w, q, flag = container.parse_header(data)
+        except Exception:
+            return None
+        if h0 is None:
+            h0 = (h, w, q)
+        elif (h, w, q) != h0:
+            return None
+        nb = -(-h // 8) * -(-w // 8)
+        idx = container.parse_block_index(data, nb)
+        if idx is None:
+            return None
+        off, stride, pay_end = idx
+        if flag & FLAG_CUSTOM_TABLE:
+            try:
+                reader = BitReader(data)
+                reader.seek(HEADER_BYTES * 8)
+                tables = container.read_huffman_table(reader)
+            except Exception:
+                return None
+            payload_off = reader.tell()
+            if payload_off >= pay_end * 8:
+                return None
+            if tables0 is None:
+                tables0 = tables
+                # admission before any payload realignment: an
+                # inadmissible table rejects in O(table)
+                tabs0 = canonical_tables(tables0)
+                if tabs0 is None:
+                    return None
+            elif tables != tables0:  # one table per batch
+                return None
+            pay_bits_true = pay_end * 8 - payload_off
+            # parse_block_index's off[-1] bound over-counts by the
+            # table-segment bits on custom streams; re-validate against
+            # the true payload length so that a corrupt trailer goes to
+            # the serial host cursor instead of mis-chunking
+            if off[-1] >= pay_bits_true:
+                return None
+            payload = bits_to_bytes(reader._bits[payload_off:pay_end * 8])
+        else:
+            payload = data[HEADER_BYTES:pay_end]
+            pay_bits_true = len(payload) * 8
+        metas.append((payload, nb, off, stride, pay_bits_true, flag))
+    stride0 = metas[0][3]
+    if any(m[3] != stride0 for m in metas):
+        return None
+    if any(m[5] != metas[0][5] for m in metas):  # uniform flags
+        return None
+
+    word_chunks = []
+    starts, blocks, bases, end_lo, end_hi, img_of = [], [], [], [], [], []
+    base_bits = 0
+    blk_base = 0
+    for i, (payload, nb, off, stride, pay_bits_true, flag) in enumerate(
+        metas
+    ):
+        pay_bits = len(payload) * 8
+        pad = (-len(payload)) % 4
+        word_chunks.append(payload + b"\x00" * pad)
+        n_chunks = len(off)
+        g = base_bits + off.astype(np.int64)
+        starts.append(g)
+        nb_in = np.full(n_chunks, stride, np.int64)
+        nb_in[-1] = nb - stride * (n_chunks - 1)
+        blocks.append(nb_in)
+        bases.append(blk_base + np.arange(n_chunks, dtype=np.int64)
+                     * stride)
+        lo = np.empty(n_chunks, np.int64)
+        hi = np.empty(n_chunks, np.int64)
+        lo[:-1] = g[1:]
+        hi[:-1] = g[1:]
+        # the final cursor must land in the writer's <= 7-bit byte-align
+        # pad window, measured from the true payload bit length (for
+        # realigned dynamic-table payloads the byte padding of the
+        # realignment is not part of the stream)
+        lo[-1] = base_bits + max(pay_bits_true - 7, 0)
+        hi[-1] = base_bits + pay_bits_true
+        end_lo.append(lo)
+        end_hi.append(hi)
+        img_of.append(np.full(n_chunks, i, np.int64))
+        base_bits += pay_bits + pad * 8
+        blk_base += nb
+    if base_bits >= MAX_PAYLOAD_BITS:  # int32 chunk offsets
+        return None
+
+    raw = b"".join(word_chunks)
+    words = np.frombuffer(raw, dtype=">u4").astype(np.uint32)
+    return {
+        "words": words,
+        "chunk_start": np.concatenate(starts).astype(np.int32),
+        "chunk_blocks": np.concatenate(blocks).astype(np.int32),
+        "chunk_block_base": np.concatenate(bases).astype(np.int32),
+        "chunk_end_lo": np.concatenate(end_lo).astype(np.int32),
+        "chunk_end_hi": np.concatenate(end_hi).astype(np.int32),
+        "chunk_img": np.concatenate(img_of).astype(np.int32),
+        "nb_total": blk_base,
+        "nb_per_image": metas[0][1],
+        "stride": int(stride0),
+        "shape": h0,
+        "scaled_dct": bool(metas[0][5] & FLAG_SCALED_DCT)
+        and not (metas[0][5] & FLAG_CUSTOM_TABLE),
+        "tables": tabs0,
+    }
+
+
+# ----------------------------------------------------------- device half
+
+
+def _check(words, chunk_arrays, nb_total: int, tables: DecodeTables) -> int:
+    if words.dtype != torch.int32 or words.ndim != 1:
+        raise ValueError("words must be a 1-D int32 tensor (uint32 bits)")
+    c = chunk_arrays[0].shape[0]
+    for a in chunk_arrays:
+        if a.dtype != torch.int32 or a.shape != (c,):
+            raise ValueError("chunk arrays must be (C,) int32 tensors")
+        if a.device != words.device:
+            raise ValueError("words and chunk arrays lie on different devices")
+    if tables.device != words.device:
+        raise ValueError("tables and words lie on different devices")
+    if nb_total < 1 or nb_total * 64 >= 1 << 31:
+        raise ValueError(f"nb_total {nb_total} out of range")
+    return c
+
+
+def entropy_decode_chunks_plain(
+    words: torch.Tensor, chunk_start: torch.Tensor,
+    chunk_blocks: torch.Tensor, chunk_block_base: torch.Tensor,
+    chunk_end_lo: torch.Tensor, chunk_end_hi: torch.Tensor,
+    nb_total: int, tables: DecodeTables,
+):
+    """Plain PyTorch version (any device) of :func:`entropy_decode_chunks`:
+    all chunks in lockstep, one symbol per chunk and step, a Python loop
+    over the steps.  Same results as the kernel, bit for bit, ``zz`` of
+    failed chunks included.  Meant for test sizes."""
+    c = _check(words, (chunk_start, chunk_blocks, chunk_block_base,
+                       chunk_end_lo, chunk_end_hi), nb_total, tables)
+    dev = words.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    nwords = words.shape[0]
+    # two zero words after the end: reads past the stream give zero bits
+    wpad = torch.cat([words.to(torch.int64) & 0xFFFFFFFF,
+                      torch.zeros(2, **i64)])
+    tab = tables.huffman.to(torch.int64)  # (2, 307); row 0 DC, row 1 AC
+    mincode, maxcode = tab[:, 0:17], tab[:, 17:34]
+    valptr, huffval = tab[:, 34:51], tab[:, 51:]
+    lens = torch.arange(1, 17, **i64).reshape(1, 16)
+
+    pos = chunk_start.to(torch.int64)
+    nblk = chunk_blocks.to(torch.int64)
+    base = chunk_block_base.to(torch.int64)
+    done = torch.zeros(c, **i64)         # blocks finished
+    p = torch.zeros(c, **i64)            # zig-zag position in the block
+    nsym = torch.zeros(c, **i64)         # symbols taken in the block
+    is_dc = torch.ones(c, dtype=torch.bool, device=dev)
+    bad = pos < 0
+    zz = torch.zeros(nb_total * 64, dtype=torch.int32, device=dev)
+
+    while True:
+        live = ~bad & (done < nblk)
+        if not bool(live.any()):
+            break
+        blk = base + done
+        # a block outside [0, nb_total) fails its chunk before any read
+        bad = bad | (live & is_dc & ((blk < 0) | (blk >= nb_total)))
+        live = live & ~bad
+        mode = (~is_dc).to(torch.int64)  # table row
+        wi = (pos >> 5).clamp(0, nwords)
+        sh = pos & 31
+        win = ((wpad[wi] << sh) & 0xFFFFFFFF) | (wpad[wi + 1] >> (32 - sh))
+        c16 = win >> 16
+        match = (c16.reshape(c, 1) >> (16 - lens)) <= maxcode[mode][:, 1:]
+        found = match.any(dim=1)
+        length = match.to(torch.int64).argmax(dim=1) + 1  # first match
+        code = c16 >> (16 - length)
+        idx = (valptr[mode, length] + code - mincode[mode, length]).clamp(
+            0, huffval.shape[1] - 1)
+        sym = huffval[mode, idx]
+        size = torch.where(is_dc, sym.clamp(0, 15), sym & 15)
+        mag = (((win << length) & 0xFFFFFFFF) >> (32 - size)) * (size > 0)
+        half = 1 << (size - 1).clamp(min=0)
+        value = torch.where((mag < half) & (size > 0),
+                            mag - (1 << size) + 1, mag)
+
+        # an AC step past the per-block symbol bound fails before reading
+        spent = live & ~is_dc & (nsym >= MAX_BLOCK_SYMBOLS)
+        nomatch = live & ~spent & ~found
+        step = live & ~spent & found
+        pos = torch.where(step, pos + length + size, pos)
+        eob = step & ~is_dc & (sym == 0)
+        ac = step & ~is_dc & (sym != 0)
+        p_new = torch.where(ac, p + ((sym >> 4) & 15) + 1,
+                            torch.zeros_like(p))
+        beyond = ac & (p_new > 63)
+        write = (step & is_dc) | (ac & ~beyond)
+        tgt = (blk * 64 + p_new)[write]
+        zz[tgt] = value[write].to(torch.int32)
+        bad = bad | spent | nomatch | beyond
+        p = torch.where(ac, p_new, torch.where(step, torch.zeros_like(p), p))
+        nsym = torch.where(eob, torch.zeros_like(nsym),
+                           torch.where(step, nsym + 1, nsym))
+        done = done + eob.to(torch.int64)
+        is_dc = torch.where(step, eob, is_dc)
+
+    ok = (~bad & (done >= nblk) & (pos >= chunk_end_lo.to(torch.int64))
+          & (pos <= chunk_end_hi.to(torch.int64)))
+    return zz.reshape(nb_total, 64), ok
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("entropy_decode")
+    fn = lib.entropy_decode_launch
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, p, p, p, p,
+                       ctypes.c_int, ctypes.c_int, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def launch_kernel(words: torch.Tensor, arrays, tables: DecodeTables,
+                  zz: torch.Tensor, ok: torch.Tensor) -> None:
+    """The kernel launch alone, into a zeroed ``zz`` (nb_total, 64) and an
+    ``ok`` (C,) uint8: what :func:`entropy_decode_chunks` does after its
+    zero fill (a measurement can time just this)."""
+    with torch.cuda.device(words.device):
+        err = _lib().entropy_decode_launch(
+            words.data_ptr(), words.shape[0],
+            *(a.data_ptr() for a in arrays),
+            tables.huffman.data_ptr(), zz.data_ptr(), ok.data_ptr(),
+            ok.shape[0], zz.shape[0],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "entropy_decode")
+
+
+def entropy_decode_chunks(
+    words: torch.Tensor, chunk_start: torch.Tensor,
+    chunk_blocks: torch.Tensor, chunk_block_base: torch.Tensor,
+    chunk_end_lo: torch.Tensor, chunk_end_hi: torch.Tensor,
+    nb_total: int, tables: DecodeTables,
+):
+    """Decode all chunks of a (multi-stream) payload word array.
+
+    ``words``: (W,) int32 bit patterns of the big-endian payload words
+    (streams byte-padded to word boundaries and concatenated).
+    ``chunk_start``: (C,) global bit offset of each chunk;
+    ``chunk_blocks``: its block count; ``chunk_block_base``: its first
+    global block index; ``chunk_end_lo`` / ``chunk_end_hi``: inclusive
+    bounds its final cursor must land in.  All as :func:`prepare_batch`
+    makes them.  ``tables.huffman`` carries the canonical tables.
+
+    Returns ``(zz (nb_total, 64) int32, ok (C,) bool)``.  CUDA tensors go
+    to the kernel (``zz`` is zero-filled here first), CPU tensors to the
+    plain version; nothing else is tried.
+    """
+    if words.device.type == "cpu":
+        return entropy_decode_chunks_plain(
+            words, chunk_start, chunk_blocks, chunk_block_base,
+            chunk_end_lo, chunk_end_hi, nb_total, tables)
+    if words.device.type != "cuda":
+        raise ValueError(f"unsupported device {words.device}")
+    global launches
+    arrays = [a.contiguous() for a in (
+        chunk_start, chunk_blocks, chunk_block_base, chunk_end_lo,
+        chunk_end_hi)]
+    c = _check(words, arrays, nb_total, tables)
+    words = words.contiguous()
+    zz = torch.zeros((nb_total, 64), dtype=torch.int32, device=words.device)
+    ok = torch.empty((c,), dtype=torch.uint8, device=words.device)
+    launch_kernel(words, arrays, tables, zz, ok)
+    launches += 1
+    return zz, ok.to(torch.bool)

@@ -80,6 +80,20 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def launch_kernel(packed: torch.Tensor, meta: torch.Tensor,
+                  stream: torch.Tensor) -> None:
+    """The ``place_kernel`` launch alone, into a zeroed ``stream``: what
+    :func:`place` does between its zero fill and its summary (a measurement
+    can time just this)."""
+    with torch.cuda.device(packed.device):
+        err = _lib().place_launch(
+            packed.data_ptr(), meta[0].data_ptr(), meta[1].data_ptr(),
+            stream.data_ptr(), packed.shape[0], stream.shape[0],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "place")
+
+
 def place(packed: torch.Tensor, meta: torch.Tensor, nb: int, cap_words: int):
     """See the module docstring.  CUDA tensors go to the kernel, CPU
     tensors to the plain version; nothing else is tried."""
@@ -88,20 +102,13 @@ def place(packed: torch.Tensor, meta: torch.Tensor, nb: int, cap_words: int):
     if packed.device.type != "cuda":
         raise ValueError(f"unsupported device {packed.device}")
     global launches
-    n = _check(packed, meta, nb)
+    _check(packed, meta, nb)
     cap_words = int(cap_words)
     if not 0 < cap_words < 1 << 31:
         raise ValueError(f"cap_words {cap_words} out of range")
     packed = packed.contiguous()
     meta = meta.contiguous()
     stream = torch.zeros(cap_words, dtype=torch.int32, device=packed.device)
-    lib = _lib()
-    with torch.cuda.device(packed.device):
-        err = lib.place_launch(
-            packed.data_ptr(), meta[0].data_ptr(), meta[1].data_ptr(),
-            stream.data_ptr(), n, cap_words,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, "place")
+    launch_kernel(packed, meta, stream)
     launches += 1
     return (stream,) + _summary(meta, nb, cap_words)

@@ -4,6 +4,10 @@ The counterpart of the JAX package's ``pallas_pipeline.compress_batch_pallas``
 on an NVIDIA card.  Per batch:
 
 - fast:  pixels -> [encode2: float32 transform + entropy] -> [place]
+  (``version="v2"``, the default), or pixels -> [encode1: the same
+  transform and symbols, each block packed from bit 0 of its own row] ->
+  [stitch: scan + funnel-shift scatter] (``version="v1"``, the JAX
+  package's comparison path; same bytes)
 - exact: pixels -> [exact_transform: float64 + tie flags] -> host float64
   recompute of the flagged blocks (one host sync) -> [encode2 from
   coefficients] -> [place]
@@ -32,9 +36,11 @@ from .constants import ZIGZAG_ORDER
 from .device import resolve_device
 from .golden import CodecArrays
 from .ops import transform
+from .ops.encode1 import encode1
 from .ops.encode2 import encode2
 from .ops.exact_transform import exact_transform
 from .ops.place import place
+from .ops.stitch import stitch
 from .tables import CodecTables
 
 # Batches above this many pixels are not taken: block bit offsets are
@@ -78,6 +84,7 @@ def compress_batch_device(
     index_stride: int = container.INDEX_STRIDE,
     true_shape: tuple[int, int] | None = None,
     device: str | torch.device | None = None,
+    version: str = "v2",
 ) -> list[bytes]:
     """(B, H, W) uint8 same-shaped images -> list of compressed bytes.
 
@@ -87,10 +94,17 @@ def compress_batch_device(
     (``true_shape`` then gives the dimensions for the header).
     ``device``: ``None`` = the CUDA card, and a ``RuntimeError`` when
     there is none; ``"cpu"`` runs the kernels' plain versions.
+    ``version``: ``"v2"`` (encode2 + place) or ``"v1"`` (encode1 +
+    stitch), fast mode only: exact mode always runs the v2 kernels.  The
+    block index needs the per-block offsets that only v2 returns.
     """
     dev = resolve_device(device)
     if precision not in (transform.FAST, transform.EXACT):
         raise ValueError(f"unknown precision {precision!r}")
+    if version not in ("v1", "v2"):
+        raise ValueError(f"unknown version {version!r}")
+    if block_index and version != "v2":
+        raise ValueError("block_index requires the v2 kernels")
     if isinstance(images, torch.Tensor):
         if images.dtype != torch.uint8 or images.ndim != 3:
             raise ValueError("expected a (B, H, W) uint8 tensor")
@@ -127,15 +141,22 @@ def compress_batch_device(
 
     tables = CodecTables.build(quality, dev)
     blocks = transform.blockify(dev_images).reshape(n, 64)
+    meta = None
     if precision == transform.EXACT:
         zz = exact_coefficients(blocks, quality, tables)
         packed, meta, overflow = encode2(zz, tables, nb, from_zz=True)
-    else:
+    elif version == "v2":
         packed, meta, overflow = encode2(blocks, tables, nb)
+    else:
+        words, bits, overflow = encode1(blocks, tables, nb)
 
     def run(cap):
-        stream, starts, total, cap_over = place(packed, meta, nb, cap)
-        status = cap_over.to(torch.int64) * 2 + overflow.to(torch.int64) * 4
+        if meta is not None:
+            stream, starts, total, cap_over = place(packed, meta, nb, cap)
+            status = cap_over.to(torch.int64) * 2
+        else:
+            stream, starts, total, status = stitch(words, bits, nb, cap)
+        status = status.to(torch.int64) + overflow.to(torch.int64) * 4
         head = torch.stack([status, total.to(torch.int64)]).cpu()  # sync
         return stream, starts, int(head[1]), int(head[0])
 

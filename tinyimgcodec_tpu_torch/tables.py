@@ -1,6 +1,7 @@
 """The codec's state on the device: its tables.
 
-The codec has no weights.  What an encode needs besides the pixels is
+The codec has no weights.  What a decode needs besides the stream is
+:class:`DecodeTables` (below).  What an encode needs besides the pixels is
 
 - the fused (64, 64) float32 matrix of the fast transform (DCT basis x
   reciprocal quantization divisors, columns in zig-zag order) and its DC
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from . import constants as C
-from .constants import ZIGZAG_ORDER, quant_divisors
+from .constants import AAN_SCALES, ZIGZAG_ORDER, quant_divisors
 
 
 @functools.cache
@@ -138,4 +139,141 @@ def _build_cached(quality: int, device: str) -> CodecTables:
     return CodecTables.from_numpy(
         m, off[0], dct_basis(), 1.0 / quant_divisors(quality),
         dc_comb, ac_comb, zrl_hi, zrl_lo, device=device,
+    )
+
+
+# ---------------------------------------------------------------- decode
+
+
+def dequant_multipliers(quality: int, scaled_dct: bool = False) -> np.ndarray:
+    """Per-position float64 dequantization multiplier (8, 8).
+
+    Normal streams: the quantization divisors.  ``scaled_dct`` streams
+    (from the embedded fixed-point encoder): ``quality`` holds the qfactor
+    shift and the coefficients carry AAN scaling, so the multiplier is
+    ``div50 * 2**qfactor / AAN``.
+    """
+    if scaled_dct:
+        return quant_divisors(50) * float(2 ** quality) / AAN_SCALES
+    return quant_divisors(quality)
+
+
+def decode_matrix(multipliers: np.ndarray) -> np.ndarray:
+    """Fused (64, 64) float64 matrix [zig-zag coefficient, pixel]:
+    dequantize + inverse DCT, giving pixel values - 128."""
+    d = dct_basis()
+    kron = np.einsum("ui,vj->ijuv", d, d).reshape(64, 64)  # [pixel, coeff]
+    mult = np.asarray(multipliers, np.float64).reshape(64)
+    return np.ascontiguousarray((kron * mult[None, :])[:, ZIGZAG_ORDER].T)
+
+
+@functools.cache
+def fast_decode_matrix(quality: int, scaled_dct: bool = False) -> np.ndarray:
+    """:func:`decode_matrix` of the stream's multipliers, in float32."""
+    return decode_matrix(dequant_multipliers(quality, scaled_dct)).astype(
+        np.float32
+    )
+
+
+@functools.cache
+def standard_decode_tables():
+    """Canonical per-length decode tables of the Annex K codes (T.81
+    F.2.2.3 form), ``((mincode, maxcode, valptr, huffval) for DC, the same
+    for AC)``: for each code length l in 1..16 (index 0 unused) the first
+    and last code of that length (``maxcode`` -1 where the length is
+    unused) and the index of its first symbol in ``huffval``."""
+
+    def build(bits, huffval):
+        mincode = np.zeros(17, np.int32)
+        maxcode = np.full(17, -1, np.int32)
+        valptr = np.zeros(17, np.int32)
+        code = 0
+        k = 0
+        for l in range(1, 17):
+            n = bits[l - 1]
+            if n:
+                valptr[l] = k
+                mincode[l] = code
+                maxcode[l] = code + n - 1
+                code += n
+                k += n
+            code <<= 1
+        return mincode, maxcode, valptr, np.asarray(huffval, np.int32)
+
+    return build(C.DC_BITS, C.DC_HUFFVAL), build(C.AC_BITS, C.AC_HUFFVAL)
+
+
+HUFFVAL_SLOTS = 256  # huffval is zero-padded to this many entries
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeTables:
+    """What a decode needs on the device.
+
+    ``huffman``: (2, 307) int32, for DC then AC ``[mincode (17), maxcode
+    (17), valptr (17), huffval (256, zero-padded)]`` -- the entropy decode
+    kernel's table argument, the same layout for the standard tables and
+    for a stream's own.  ``fast_matrix`` / ``exact_matrix``: the fused
+    dequantize + inverse-DCT matrix [zig-zag coefficient, pixel] in
+    float32 and float64.
+    """
+
+    huffman: torch.Tensor
+    fast_matrix: torch.Tensor
+    exact_matrix: torch.Tensor
+
+    @property
+    def device(self) -> torch.device:
+        return self.huffman.device
+
+    @classmethod
+    def from_numpy(cls, dc_table, ac_table, fast_matrix, multipliers,
+                   device: str | torch.device = "cpu") -> "DecodeTables":
+        """``dc_table`` / ``ac_table``: ``(mincode, maxcode, valptr,
+        huffval)`` tuples as :func:`standard_decode_tables` or
+        ``ops.entropy_decode.canonical_tables`` return them;
+        ``fast_matrix`` (64, 64) float32; ``multipliers`` (8, 8) float64
+        (:func:`dequant_multipliers`)."""
+        dev = torch.device(device)
+        rows = []
+        for mincode, maxcode, valptr, huffval in (dc_table, ac_table):
+            hv = np.zeros(HUFFVAL_SLOTS, np.int32)
+            hv[: len(huffval)] = np.asarray(huffval, np.int32)
+            rows.append(np.concatenate([
+                np.asarray(mincode, np.int32), np.asarray(maxcode, np.int32),
+                np.asarray(valptr, np.int32), hv,
+            ]))
+        packed = np.stack(rows)
+        if packed.shape != (2, 3 * 17 + HUFFVAL_SLOTS):
+            raise ValueError(f"decode tables of shape {packed.shape}")
+        return cls(
+            huffman=torch.from_numpy(packed).to(dev),
+            fast_matrix=torch.from_numpy(
+                np.ascontiguousarray(fast_matrix, np.float32).copy()
+            ).reshape(64, 64).to(dev),
+            exact_matrix=torch.from_numpy(decode_matrix(multipliers)).to(dev),
+        )
+
+    @classmethod
+    def build(cls, quality: int, scaled_dct: bool = False,
+              device: str | torch.device = "cpu",
+              huffman=None) -> "DecodeTables":
+        """Tables of a stream with this header.  ``huffman``: the
+        stream's own canonical ``(dc_table, ac_table)``; ``None`` = the
+        standard Annex K tables (cached per quality and device)."""
+        if huffman is None:
+            return _build_decode_cached(
+                int(quality), bool(scaled_dct), str(torch.device(device))
+            )
+        return cls.from_numpy(
+            *huffman, fast_decode_matrix(int(quality), bool(scaled_dct)),
+            dequant_multipliers(int(quality), bool(scaled_dct)), device=device,
+        )
+
+
+@functools.lru_cache(maxsize=64)
+def _build_decode_cached(quality: int, scaled_dct: bool,
+                         device: str) -> DecodeTables:
+    return DecodeTables.build(
+        quality, scaled_dct, device, huffman=standard_decode_tables()
     )
