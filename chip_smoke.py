@@ -14,7 +14,11 @@ the port's main path -- the round trip: ``compress_batch`` of a 49 x 512 x
 the float64 host oracle, shows from the launch counters that the path went
 through the kernels and from the engine's counters which decode leg took
 each image, and times every kernel at the corpus shapes beside its plain
-version and its bound.
+version and its bound.  The two kernels that were redesigned for this card,
+``entropy_decode`` and ``encode2``, are also held against their plain
+versions at the shapes that steer their copy paths (odd block counts, one
+huge image, thousands of one-block images, streams denser than the staged
+window, corrupt chunk arrays).
 
 Output: one JSON object per phase, then the ``{"kernels": [...]}`` line,
 the card's name and power limit as ``nvidia-smi`` prints them, and as the
@@ -29,6 +33,7 @@ versions only) to find mistakes before a GPU is used; it never prints the
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
@@ -84,7 +89,7 @@ from tinyimgcodec_tpu_torch.pipeline import (  # noqa: E402
     _host_zz64, compress_batch_device, exact_coefficients,
 )
 from tinyimgcodec_tpu_torch.tables import (  # noqa: E402
-    CodecTables, DecodeTables,
+    CodecTables, DecodeTables, dequant_multipliers, fast_decode_matrix,
 )
 
 DEV = torch.device("cpu" if REHEARSE else "cuda")
@@ -132,6 +137,38 @@ def time_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_split(fn, reps: int, kernel: str) -> dict | None:
+    """What one call of a wrapper launches on the card, read from
+    ``torch.profiler`` over ``reps`` calls: for every kernel, memset and
+    copy its launches a call and its mean device microseconds a call.
+    Fails the run unless the wrapper's own ``kernel`` is among them with
+    exactly one launch a call.  ``None`` on the CPU."""
+    if DEV.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    launches, micros = {}, {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "cuda_time_total", 0.0)
+        if str(getattr(ev, "device_type", "")).endswith("CUDA") and dev_us > 0:
+            launches[ev.key[:80]] = ev.count / reps
+            micros[ev.key[:80]] = dev_us / reps
+    own = sum(v for k, v in launches.items() if kernel in k)
+    if own != 1:
+        fail(f"profiler: {kernel} launched {own} times a call; it saw "
+             f"{launches}")
+    return {"launches_per_call": launches, "us_per_call": micros}
 
 
 def blocks_of(images: np.ndarray) -> torch.Tensor:
@@ -361,26 +398,264 @@ def phase_kernel_check(corpus: np.ndarray) -> dict:
     return errs
 
 
-def kernel_vs_plain_decode(label: str, streams) -> tuple:
-    """Entropy decode of the streams by the kernel and by the plain
-    version on the same tensors: (prep, ok as numpy, the kernel's zz,
-    the largest |kernel - plain| over zz and ok).  Fails the run unless
-    ``zz`` and ``ok`` are equal bit for bit."""
-    got = decode_inputs(streams)
-    if got is None:
-        fail(f"entropy_decode[{label}]: prepare_batch refused the batch")
-    prep, args, tables = got
-    zk, ok_k = entropy_decode.entropy_decode_chunks(
-        *args, prep["nb_total"], tables)
+def encode2_both(label: str, zz: torch.Tensor, tables: CodecTables,
+                 nb: int) -> tuple:
+    """``encode2`` from coefficients by the kernel and by the plain
+    version: (the kernel's outputs, the largest |kernel - plain| over rows
+    and meta).  Fails the run unless rows, meta and flag are equal."""
+    a = encode2.encode2(zz, tables, nb, from_zz=True)
+    b = encode2.encode2_plain(zz, tables, nb, from_zz=True)
+    sync()
+    if not (eq(a[0], b[0]) and eq(a[1], b[1]) and bool(a[2]) == bool(b[2])):
+        fail(f"encode2[{label}]: kernel and plain version differ (rows "
+             f"{int((a[0] != b[0]).sum())}, meta {int((a[1] != b[1]).sum())}, "
+             f"overflow {bool(a[2])}/{bool(b[2])})")
+    return a, max_abs_diff((a[0], b[0]), (a[1], b[1]))
+
+
+def phase_encode2_shapes(corpus: np.ndarray) -> tuple[int, dict]:
+    """``encode2`` against its plain version at the shapes that steer its
+    copy paths and its scan: block counts that are no multiple of 4 or of
+    the tile, a misaligned tensor, one 4096x4096 image (the longest
+    look-back chain), thousands of one-block images, the longest legal
+    block at every bit phase, both overflow flags, and repeated calls (the
+    scan's state is reset by every call).  Returns the largest
+    |kernel - plain| and the times of the one-image case."""
+    rng = np.random.RandomState(23)
+    worst = 0
+    report = []
+
+    def coefficients(images, quality):
+        tables = CodecTables.build(quality, DEV)
+        blocks = blocks_of(images)
+        return tables, blocks, exact_transform.exact_transform(blocks,
+                                                               tables)[0]
+
+    def both_forms(label, images, quality):
+        nonlocal worst
+        tables, blocks, zz = coefficients(images, quality)
+        nb = blocks.shape[0] // images.shape[0]
+        _, err = encode2_both(label, zz, tables, nb)
+        worst = max(worst, err)
+        # pixel form: the plain coding of the transform kernel's own
+        # coefficients (the tie bar on those is phase kernel_check's)
+        zzf = encode2.fast_coefficients(blocks, tables)
+        pk = encode2.encode2(blocks, tables, nb)
+        pp = encode2.encode2_plain(zzf, tables, nb, from_zz=True)
+        sync()
+        if not (eq(pk[0], pp[0]) and eq(pk[1], pp[1])
+                and bool(pk[2]) == bool(pp[2])):
+            fail(f"encode2[{label}, pixels]: words differ from the plain "
+                 "entropy coding of the kernel's own coefficients")
+        report.append({"case": label, "blocks": int(blocks.shape[0]),
+                       "nb": nb, "tiles": (blocks.shape[0] // nb)
+                       * -(-nb // encode2.TILE)})
+        return tables, blocks, zz, nb
+
+    noise = lambda *shape: rng.randint(0, 256, shape).astype(np.uint8)
+    # N = 135: no multiple of 4, an image is less than a tile
+    both_forms("3 x 40x72, nb 45", noise(3, 40, 72), 90)
+    # nb = 323: odd, two whole tiles and a ragged third; 4-byte copies
+    both_forms("3 x 136x152, nb 323", noise(3, 136, 152), 90)
+    # nb = 300: a ragged third tile, every row piece on 16 bytes
+    tables, _, zz, nb = both_forms("3 x 120x160, nb 300",
+                                   synthetic_corpus(3, 160)[:, :120], 50)
+    # the same coefficients one word off 16-byte alignment
+    buf = torch.empty(zz.numel() + 1, dtype=torch.int32, device=DEV)
+    shifted = buf[1:].view(zz.shape)
+    shifted.copy_(zz)
+    if DEV.type == "cuda" and shifted.data_ptr() % 16 == 0:
+        fail("the misaligned view is aligned")
+    _, err = encode2_both("nb 300, misaligned tensor", shifted, tables, nb)
+    worst = max(worst, err)
+    report.append({"case": "nb 300, tensor 4 bytes off 16-byte alignment"})
+    # thousands of images of one block: every tile starts an image
+    both_forms("4096 x 8x8, nb 1",
+               noise(64 if REHEARSE else 4096, 8, 8), 75)
+    # one image at the pipeline's pixel limit: 2048 tiles in one chain
+    side = 64 if REHEARSE else 4096
+    reps = -(-side // corpus.shape[1])
+    picks = corpus[np.arange(reps * reps) % corpus.shape[0]]
+    big = picks.reshape(reps, reps, *corpus.shape[1:]).transpose(
+        0, 2, 1, 3).reshape(reps * corpus.shape[1], -1)[None, :side, :side]
+    big = np.ascontiguousarray(big)
+    tables, blocks, zz, nb = both_forms(f"1 x {side}x{side}", big, 50)
+    first = encode2.encode2(zz, tables, nb, from_zz=True)
+    for _ in range(20):  # the same answer every time
+        again = encode2.encode2(zz, tables, nb, from_zz=True)
+        if not (eq(again[0], first[0]) and eq(again[1], first[1])):
+            fail("encode2: repeated calls on one input differ")
+    reps_t = 1 if REHEARSE else 20
+    one_image = {
+        "blocks": int(blocks.shape[0]),
+        "from_zz_ms": time_ms(
+            lambda: encode2.encode2(zz, tables, nb, from_zz=True), reps_t),
+        "pixels_ms": time_ms(
+            lambda: encode2.encode2(blocks, tables, nb), reps_t),
+        "from_zz_bound_ms": blocks.shape[0] * (256 + 232)
+        / MEM_BYTES_PER_S * 1e3,
+        "pixels_bound_ms": blocks.shape[0] * (2 * 64 * 64 + 64 * 8)
+        / FP32_PER_S * 1e3,
+    }
+    # the longest legal block (63 coefficients of size 10 with 16-bit
+    # codes, 1662 bits) between short ones, so that it meets every phase
+    tables = CodecTables.build(50, DEV)
+    n = 512
+    worst_zz = np.zeros((64, n), np.int32)
+    worst_zz[0] = np.where(np.arange(n) % 2 == 0, 1000, -1000)
+    worst_zz[1:] = rng.randint(512, 1024, (63, n)) * rng.choice(
+        [-1, 1], (63, n))
+    worst_zz[1:, 1::2] = 0
+    worst_zz[5, 1::2] = rng.randint(1, 8, n // 2)
+    (_, meta, over), err = encode2_both(
+        "worst-case blocks", torch.from_numpy(worst_zz).to(DEV), tables, 64)
+    worst = max(worst, err)
+    if int(meta[1].max()) < 1600 or bool(over):
+        fail("encode2[worst-case blocks]: not the longest legal block")
+    phases = int(torch.unique(meta[0, ::2] & 31).numel())
+    report.append({"case": "worst-case blocks", "max_bits":
+                   int(meta[1].max()), "bit_phases_met": phases})
+    # the two table-range flags
+    for label, row, value in (("DC difference of 12 bits", 0, 2048),
+                              ("AC coefficient of 11 bits", 7, 1024),
+                              ("AC coefficient of 11 bits, last", 63, -1024)):
+        flagged = worst_zz.copy()
+        flagged[1:] = 0
+        flagged[0] = 0
+        flagged[row, 70] = value
+        (_, _, over), err = encode2_both(
+            label, torch.from_numpy(flagged).to(DEV), tables, 64)
+        if not bool(over):
+            fail(f"encode2[{label}]: overflow flag not raised")
+        report.append({"case": label, "overflow": True})
+    emit("encode2_shapes", cases=report, one_image=one_image,
+         tolerance="rows, meta and flag equal to the plain version; pixel "
+         "form equal to the plain coding of the transform kernel's "
+         "coefficients; 20 repeated calls identical")
+    return worst, one_image
+
+
+def decode_both(label: str, args, nb_total: int, tables):
+    """The entropy decode kernel and its plain version on the same
+    tensors: (ok as numpy, the kernel's zz, the largest |kernel - plain|
+    over zz and ok).  Fails the run unless both are equal bit for bit."""
+    zk, ok_k = entropy_decode.entropy_decode_chunks(*args, nb_total, tables)
     zp, ok_p = entropy_decode.entropy_decode_chunks_plain(
-        *args, prep["nb_total"], tables)
+        *args, nb_total, tables)
     sync()
     err = max_abs_diff((zk, zp), (ok_k, ok_p))
     if not (eq(zk, zp) and eq(ok_k, ok_p)):
         fail(f"entropy_decode[{label}]: kernel and plain version differ "
              f"(zz {int((zk != zp).sum())}, ok {int((ok_k != ok_p).sum())}, "
              f"max |difference| {err})")
-    return prep, ok_k.cpu().numpy(), zk, err
+    return ok_k.cpu().numpy(), zk, err
+
+
+def kernel_vs_plain_decode(label: str, streams) -> tuple:
+    """:func:`decode_both` on the streams' own arrays: (prep, ok, the
+    kernel's zz, the largest |kernel - plain|)."""
+    got = decode_inputs(streams)
+    if got is None:
+        fail(f"entropy_decode[{label}]: prepare_batch refused the batch")
+    prep, args, tables = got
+    ok, zk, err = decode_both(label, args, prep["nb_total"], tables)
+    return prep, ok, zk, err
+
+
+def ctas_past_window(prep) -> int:
+    """How many CTAs of the decode kernel have chunks that reach past
+    their staged window of the stream (and so read device memory), for
+    the launch shape the wrapper picks."""
+    n = len(prep["chunk_start"])
+    cpw, warps, stage = entropy_decode.launch_shape(n, len(prep["words"]))
+    per = cpw * warps
+    first = np.arange(0, n, per)
+    last = np.minimum(first + per - 1, n - 1)
+    lo = prep["chunk_start"][first].astype(np.int64) >> 5
+    hi = prep["chunk_end_hi"][last].astype(np.int64) >> 5
+    return int((hi - lo >= stage - 3).sum())
+
+
+def table_with_16_bit_codes(symbols) -> tuple:
+    """A canonical table with one code of every length 1..16 ('0', '10',
+    ... , fifteen ones and a zero) for the 16 ``symbols``; sixteen ones
+    match no code."""
+    mincode = np.zeros(17, np.int32)
+    maxcode = np.full(17, -1, np.int32)
+    valptr = np.zeros(17, np.int32)
+    code = 0
+    for l in range(1, 17):
+        valptr[l] = l - 1
+        mincode[l] = maxcode[l] = code
+        code = (code + 1) << 1
+    return mincode, maxcode, valptr, np.asarray(symbols, np.int32)
+
+
+def check_decode_arrays(small: list[bytes]) -> dict:
+    """The decode kernel against its plain version on inputs no stream
+    gives: launch shapes with a tiny or no staged window, a table whose
+    codes run to 16 bits (and DC symbols past 15) on random words, chunk
+    starts that are negative or far off, and chunk arrays with a gap."""
+    worst = 0
+    ran = []
+    prep, args, tables = decode_inputs(small)
+    nb_total = prep["nb_total"]
+    zp, ok_p = entropy_decode.entropy_decode_chunks_plain(
+        *args, nb_total, tables)
+    if DEV.type == "cuda":
+        for shape in ((4, 4, 64), (4, 4, 0), (32, 2, 64), (1, 8, 8)):
+            zk = torch.zeros((nb_total, 64), dtype=torch.int32, device=DEV)
+            ok_k = torch.empty(ok_p.shape, dtype=torch.bool, device=DEV)
+            entropy_decode.launch_kernel(args[0], args[1:], tables, zk, ok_k,
+                                         shape)
+            sync()
+            worst = max(worst, max_abs_diff((zk, zp), (ok_k, ok_p)))
+            if not (eq(zk, zp) and eq(ok_k, ok_p) and bool(ok_k.all())):
+                fail(f"entropy_decode[launch shape {shape}]: differs from "
+                     "the plain version")
+            ran.append(f"shape {shape}")
+    # a table with codes of every length up to 16, on random words
+    rng = np.random.RandomState(16)
+    words = rng.randint(0, 1 << 32, 4096, dtype=np.int64).astype(np.uint32)
+    words[100:110] = 0xFFFFFFFF  # sixteen ones: no code
+    dc16 = table_with_16_bit_codes(
+        [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 15, 20, 200])
+    ac16 = table_with_16_bit_codes(
+        [0x01, 0x02, 0x11, 0x00, 0x03, 0x21, 0xF0, 0x12, 0x04, 0x31, 0x05,
+         0x41, 0x13, 0x22, 0x0A, 0x7A])
+    t16 = DecodeTables.from_numpy(dc16, ac16, fast_decode_matrix(50),
+                                  dequant_multipliers(50), device=DEV)
+    n = 64
+    starts = np.arange(n, dtype=np.int64) * 2000
+    starts[1] = 100 * 32
+    arrays = [starts, np.full(n, 4), np.arange(n) * 4, np.zeros(n),
+              np.full(n, 2 ** 31 - 1)]
+    a16 = [torch.from_numpy(words.view(np.int32)).to(DEV)] + [
+        torch.from_numpy(a.astype(np.int32)).to(DEV) for a in arrays]
+    ok, _, err = decode_both("16-bit codes", a16, 4 * n, t16)
+    worst = max(worst, err)
+    if ok[1]:
+        fail("entropy_decode[16-bit codes]: sixteen 1-bits matched a code")
+    ran.append(f"16-bit codes ({int(ok.sum())}/{n} chunks ok)")
+    # chunk starts that point nowhere
+    bad = [a.clone() for a in args]
+    bad[1][3] = -7
+    bad[1][5] = 2 ** 31 - 64
+    ok, _, err = decode_both("start outside", bad, nb_total, tables)
+    worst = max(worst, err)
+    if ok[3] or ok[5] or not np.delete(ok, [3, 5]).all():
+        fail(f"entropy_decode[start outside]: ok = {ok.tolist()}")
+    ran.append("negative and far-off chunk_start")
+    # chunk arrays with a gap and a chunk that runs out of zz
+    keep = [k for k in range(args[1].shape[0]) if k not in (2, 7)]
+    gap = [args[0]] + [a[keep].clone() for a in args[1:]]
+    gap[3][-1] = nb_total - 1  # its second block lies outside zz
+    ok, _, err = decode_both("gap", gap, nb_total, tables)
+    worst = max(worst, err)
+    if ok[-1] or not ok[:-1].all():
+        fail(f"entropy_decode[gap]: ok = {ok.tolist()}")
+    ran.append("chunk arrays with a gap")
+    return {"cases": ran, "max_abs_err": worst}
 
 
 def corrupt_cases(base: list[bytes], nb: int) -> list:
@@ -483,6 +758,16 @@ def phase_decode_check(corpus: np.ndarray) -> int:
     dyn_img = synthetic_corpus(1, 64 if REHEARSE else 128)[0]
     dyn = container.compress(dyn_img, 50, True, block_index=True)
     small, small_nb = small_indexed_streams()
+    # seven flat images and one of dense noise: the noise image's CTAs
+    # span far more of the stream than the batch's mean, past their window
+    rng = np.random.RandomState(96)
+    side = 32 if REHEARSE else 256
+    mixed = np.empty((8, side, side), np.uint8)
+    mixed[:] = (40 + 25 * np.arange(8)).reshape(8, 1, 1)
+    mixed[5] = rng.randint(0, 256, (side, side))
+    uneven = codec.compress_batch(mixed, 96, precision="fast",
+                                  index_stride=16, device=DEV)
+    past_window = None
     cases = [
         ("corpus q50", codec.compress_batch(corpus, 50, precision="fast",
                                             device=DEV)),
@@ -491,12 +776,24 @@ def phase_decode_check(corpus: np.ndarray) -> int:
         ("odd 61x83", codec.compress_batch(odd, 50, device=DEV)),
         ("stride 16", small),
         ("dynamic table", [dyn, dyn]),
+        ("uneven density q96", uneven),
+        ("stride 4096: one chunk an image", codec.compress_batch(
+            synthetic_corpus(3, 32 if REHEARSE else 96), 50,
+            index_stride=4096, device=DEV)),
+        ("images of one block", codec.compress_batch(
+            rng.randint(0, 256, (64 if REHEARSE else 2048, 8, 8)).astype(
+                np.uint8), 50, device=DEV)),
     ]
     for label, streams in cases:
         prep, ok, zz, err = kernel_vs_plain_decode(label, streams)
         worst = max(worst, err)
         if not ok.all():
             fail(f"entropy_decode[{label}]: valid chunks failed validation")
+        if label.startswith("uneven"):
+            past_window = ctas_past_window(prep)
+            if past_window < 1 and not REHEARSE:
+                fail("entropy_decode[uneven density]: no CTA reaches past "
+                     "its staged window")
         # the host oracle's coefficients, on the first and the last stream
         nb = prep["nb_per_image"]
         for i in (0, len(streams) - 1):
@@ -513,8 +810,10 @@ def phase_decode_check(corpus: np.ndarray) -> int:
                        "max_abs_err": err,
                        "own_table": prep["tables"] is not None})
     corrupt = check_corrupt(small, small_nb)
-    worst = max(worst, corrupt["max_abs_err"])
-    emit("decode_check", cases=report, corrupt=corrupt,
+    arrays = check_decode_arrays(small)
+    worst = max(worst, corrupt["max_abs_err"], arrays["max_abs_err"])
+    emit("decode_check", cases=report, corrupt=corrupt, arrays=arrays,
+         ctas_past_their_window=past_window,
          sanitizer=run_sanitizer(),
          tolerance="zz and ok equal bit for bit; valid streams: all chunks "
          "ok and coefficients equal to the host decoder's; corrupt "
@@ -703,6 +1002,8 @@ def phase_main_path(corpus: np.ndarray) -> tuple[dict, list[bytes]]:
          decode_legs_corpus=batch_stats, decode_legs=legs,
          launches=launched, launches_by_path=per_path,
          bytes_exact=sum(map(len, exact)), bytes_fast=sum(map(len, fast)),
+         sha256_exact_streams=hashlib.sha256(b"".join(exact)).hexdigest(),
+         sha256_fast_streams=hashlib.sha256(b"".join(fast)).hexdigest(),
          first_pass_seconds=round(secs, 3),
          first_decode_seconds=round(decode_secs, 3),
          check_seconds=round(time.perf_counter() - t0, 1))
@@ -710,9 +1011,10 @@ def phase_main_path(corpus: np.ndarray) -> tuple[dict, list[bytes]]:
 
 
 def phase_kernels(corpus: np.ndarray, launched: dict, errs: dict,
-                  streams: list[bytes]) -> list:
+                  streams: list[bytes], one_image: dict) -> list:
     """Every kernel at the corpus shapes: time, plain time, bound.
-    ``streams``: the main path's exact corpus streams, for the decoder."""
+    ``streams``: the main path's exact corpus streams, for the decoder;
+    ``one_image``: ``encode2``'s times on one 4096x4096 image."""
     quality = 50
     reps = 1 if REHEARSE else 20
     tables = CodecTables.build(quality, DEV)
@@ -727,7 +1029,7 @@ def phase_kernels(corpus: np.ndarray, launched: dict, errs: dict,
     table_bytes = 4 * (12 + 176 + 8)
 
     def row(name, source, replaces, count, err, ms, plain_ms, nbytes, ops,
-            rate, library_ms=None, kernel_only_ms=None):
+            rate, library_ms=None, kernel_only_ms=None, **more):
         t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
         t_ops = ops / rate * 1e3
         return {
@@ -739,7 +1041,7 @@ def phase_kernels(corpus: np.ndarray, launched: dict, errs: dict,
             "library_ms": library_ms, "bytes": nbytes, "operations": ops,
             # the launches alone, where the wrapper's "ms" also holds a
             # zero fill of the output and small tensor operations
-            "kernel_only_ms": kernel_only_ms,
+            "kernel_only_ms": kernel_only_ms, **more,
         }
 
     def kernel_only(launch, words, reps):
@@ -774,6 +1076,12 @@ def phase_kernels(corpus: np.ndarray, launched: dict, errs: dict,
         time_ms(lambda: encode2.encode2_plain(zz, tables, nb, from_zz=True),
                 max(1, reps // 4)),
         n * (256 + 232) + table_bytes, n * 64 * 8, FP32_PER_S,
+        device_split=device_split(
+            lambda: encode2.encode2(zz, tables, nb, from_zz=True), reps,
+            "encode2_kernel"),
+        one_image_4096x4096={"blocks": one_image["blocks"],
+                             "ms": one_image["from_zz_ms"],
+                             "bound_ms": one_image["from_zz_bound_ms"]},
     ))
     # encode2 from pixels: 64 B in, the 64x64 float32 product on top
     out.append(row(
@@ -785,6 +1093,12 @@ def phase_kernels(corpus: np.ndarray, launched: dict, errs: dict,
                 max(1, reps // 4)),
         n * (64 + 232) + table_bytes + 64 * 64 * 4,
         n * (2 * 64 * 64 + 64 * 8), FP32_PER_S,
+        device_split=device_split(
+            lambda: encode2.encode2(blocks, tables, nb), reps,
+            "encode2_kernel"),
+        one_image_4096x4096={"blocks": one_image["blocks"],
+                             "ms": one_image["pixels_ms"],
+                             "bound_ms": one_image["pixels_bound_ms"]},
     ))
     # place: reads the words the blocks own and the meta, writes the stream
     words = packed.to(torch.int64) & 0xFFFFFFFF
@@ -836,30 +1150,62 @@ def phase_kernels(corpus: np.ndarray, launched: dict, errs: dict,
             cap, reps),
     ))
     # entropy_decode: reads the stream words, the chunk arrays and the
-    # tables, writes 256 B a block; per symbol a length search of at most
-    # 16 compares plus the value (counted as 24 operations)
-    prep, args, dtab = decode_inputs(streams)
-    nb_total = prep["nb_total"]
-    zz_d, ok_d = entropy_decode.entropy_decode_chunks(*args, nb_total, dtab)
-    sync()
-    symbols = int((zz_d[:, 1:] != 0).sum()) + 2 * nb_total
-    zz_buf = torch.zeros((nb_total, 64), dtype=torch.int32, device=DEV)
-    ok_buf = torch.empty((ok_d.shape[0],), dtype=torch.uint8, device=DEV)
+    # tables, writes 256 B a block; per symbol a table lookup, the value
+    # and the cursor (counted as 24 operations).  Once on the main path's
+    # exact streams (q=50), once on denser ones (q=90).
+    def decode_row(streams):
+        prep, args, dtab = decode_inputs(streams)
+        nb_total = prep["nb_total"]
+        zz_d, ok_d = entropy_decode.entropy_decode_chunks(
+            *args, nb_total, dtab)
+        sync()
+        chunks = ok_d.shape[0]
+        per_block = (zz_d[:, 1:] != 0).sum(dim=1) + 2  # DC, ACs, EOB
+        symbols = int(per_block.sum())
+        # the longest serial chain: symbols of the chunk that has most
+        ends = torch.cumsum(per_block, 0)[
+            (args[3] + args[2] - 1).to(torch.int64)]
+        longest = int(torch.diff(ends, prepend=ends.new_zeros(1)).max())
+        nbytes = (args[0].numel() * 4 + 5 * 4 * chunks
+                  + (dtab.huffman.numel() + dtab.lookup.numel()) * 4
+                  + nb_total * 256 + chunks)
+        # the launch alone into a zeroed buffer that is not zeroed again
+        # between repeats (the same values land in the same places)
+        zz_buf = torch.zeros((nb_total, 64), dtype=torch.int32, device=DEV)
+        ok_buf = torch.empty((chunks,), dtype=torch.bool, device=DEV)
+        return {
+            "ms": time_ms(lambda: entropy_decode.entropy_decode_chunks(
+                *args, nb_total, dtab), reps),
+            "kernel_only_ms": None if DEV.type != "cuda" else time_ms(
+                lambda: entropy_decode.launch_kernel(
+                    args[0], args[1:], dtab, zz_buf, ok_buf), reps),
+            "device_split": device_split(
+                lambda: entropy_decode.entropy_decode_chunks(
+                    *args, nb_total, dtab), reps, "entropy_decode_kernel"),
+            "bytes": nbytes, "operations": symbols * 24,
+            "bound_ms": max(nbytes / MEM_BYTES_PER_S,
+                            symbols * 24 / FP32_PER_S) * 1e3,
+            "chunks": chunks, "stream_words": int(args[0].numel()),
+            "symbols": symbols, "longest_chunk_symbols": longest,
+            "launch_shape": list(entropy_decode.launch_shape(
+                chunks, args[0].numel())),
+        }, (args, nb_total, dtab)
+
+    q50, (args, nb_total, dtab) = decode_row(streams)
+    q90, _ = decode_row(codec.compress_batch(corpus, 90, precision="fast",
+                                             device=DEV))
     out.append(row(
         "entropy_decode", src + "entropy_decode.cu",
         "tinyimgcodec_tpu/ops/entropy_decode.py:267 (an XLA program in the "
         "JAX package, no Pallas kernel)",
-        launched["entropy_decode"], errs["entropy_decode"],
-        time_ms(lambda: entropy_decode.entropy_decode_chunks(
-            *args, nb_total, dtab), reps),
+        launched["entropy_decode"], errs["entropy_decode"], q50["ms"],
         time_ms(lambda: entropy_decode.entropy_decode_chunks_plain(
             *args, nb_total, dtab), 1),
-        args[0].numel() * 4 + 5 * 4 * ok_d.shape[0] + dtab.huffman.numel() * 4
-        + nb_total * 256 + ok_d.shape[0],
-        symbols * 24, FP32_PER_S,
-        kernel_only_ms=None if DEV.type != "cuda" else time_ms(
-            lambda: entropy_decode.launch_kernel(
-                args[0], args[1:], dtab, zz_buf, ok_buf), reps),
+        q50["bytes"], q50["operations"], FP32_PER_S,
+        kernel_only_ms=q50["kernel_only_ms"],
+        device_split=q50["device_split"],
+        launch_shape=q50["launch_shape"], symbols=q50["symbols"],
+        longest_chunk_symbols=q50["longest_chunk_symbols"], q90=q90,
     ))
     return out
 
@@ -1003,9 +1349,11 @@ def main() -> None:
         return
     corpus = synthetic_corpus(5, 64) if REHEARSE else synthetic_corpus(49, 512)
     errs = phase_kernel_check(corpus)
+    shapes_err, one_image = phase_encode2_shapes(corpus)
+    errs["encode2"] = max(errs["encode2"], shapes_err)
     errs["entropy_decode"] = phase_decode_check(corpus)
     launched, exact_streams = phase_main_path(corpus)
-    kernels = phase_kernels(corpus, launched, errs, exact_streams)
+    kernels = phase_kernels(corpus, launched, errs, exact_streams, one_image)
     phase_timing(corpus, exact_streams)
     emit("done", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -23,7 +23,9 @@ from tinyimgcodec_tpu_torch.ops import transform
 from tinyimgcodec_tpu_torch.pipeline import (
     compress_batch_device, exact_coefficients,
 )
-from tinyimgcodec_tpu_torch.tables import CodecTables, DecodeTables
+from tinyimgcodec_tpu_torch.tables import (
+    CodecTables, DecodeTables, dequant_multipliers, fast_decode_matrix,
+)
 
 from conftest import synthetic_image
 
@@ -213,3 +215,170 @@ def test_decode_on_the_card_equals_the_oracle(cuda):
         for o, s in zip(got, batch):
             assert np.array_equal(o, container.decompress(s))
     assert np.array_equal(decompress(plain), container.decompress(plain))
+
+
+# ---- the shapes that steer encode2's copy paths and its scan ---------------
+
+
+def _encode2_both(zz, t, nb):
+    a = encode2.encode2(zz, t, nb, from_zz=True)
+    b = encode2.encode2_plain(zz, t, nb, from_zz=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    return a
+
+
+@pytest.mark.parametrize(
+    "shape, quality",
+    [((3, 40, 72), 90),      # N = 135: no multiple of 4, nb below a tile
+     ((3, 136, 152), 90),    # nb = 323: odd, ragged third tile
+     ((3, 120, 160), 50),    # nb = 300: ragged, rows on 16 bytes
+     ((4096, 8, 8), 75),     # every tile starts an image
+     ((1, 1024, 2048), 50)], # 256 tiles in one look-back chain
+    ids=["N135", "nb323", "nb300", "one-block-images", "one-image"],
+)
+def test_encode2_shapes_equal_plain_version(cuda, shape, quality):
+    imgs = np.random.RandomState(5).randint(0, 256, shape).astype(np.uint8)
+    t = CodecTables.build(quality, cuda)
+    blocks = _blocks(imgs, cuda).contiguous()
+    nb = blocks.shape[0] // shape[0]
+    zz, _ = exact_transform.exact_transform(blocks, t)
+    first = _encode2_both(zz, t, nb)
+    # one word off 16-byte alignment: the 4-byte copy path, same words
+    buf = torch.empty(zz.numel() + 1, dtype=torch.int32, device=cuda)
+    shifted = buf[1:].view(zz.shape)
+    shifted.copy_(zz)
+    assert shifted.data_ptr() % 16
+    _encode2_both(shifted, t, nb)
+    # pixel form: the plain coding of the transform kernel's coefficients
+    zk = encode2.fast_coefficients(blocks, t)
+    a = encode2.encode2(blocks, t, nb)
+    b = encode2.encode2_plain(zk, t, nb, from_zz=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    # the scan's state is reset by every call
+    for _ in range(5):
+        again = encode2.encode2(zz, t, nb, from_zz=True)
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1], first[1])
+
+
+def test_encode2_longest_block_and_overflow_flags(cuda):
+    rng = np.random.RandomState(3)
+    t = CodecTables.build(50, cuda)
+    n = 512
+    zz = np.zeros((64, n), np.int32)
+    zz[0] = np.where(np.arange(n) % 2 == 0, 1000, -1000)
+    zz[1:] = rng.randint(512, 1024, (63, n)) * rng.choice([-1, 1], (63, n))
+    zz[1:, 1::2] = 0
+    zz[5, 1::2] = rng.randint(1, 8, n // 2)
+    _, meta, over = _encode2_both(torch.from_numpy(zz).to(cuda), t, 64)
+    assert int(meta[1].max()) == 1662 and not bool(over)
+    for row, value in ((0, 2048), (7, 1024), (63, -1024)):
+        flagged = np.zeros((64, n), np.int32)
+        flagged[row, 70] = value
+        assert bool(_encode2_both(torch.from_numpy(flagged).to(cuda), t,
+                                  64)[2])
+
+
+# ---- the shapes that steer entropy_decode's paths ---------------------------
+
+
+def _prep_args(streams, cuda):
+    prep = entropy_decode.prepare_batch(streams)
+    keys = ("chunk_start", "chunk_blocks", "chunk_block_base",
+            "chunk_end_lo", "chunk_end_hi")
+    t = DecodeTables.build(prep["shape"][2], False, cuda,
+                           huffman=prep["tables"])
+    args = [torch.from_numpy(prep["words"].view(np.int32)).to(cuda)] + [
+        torch.from_numpy(prep[k]).to(cuda) for k in keys]
+    return prep, args, t
+
+
+def _decode_both_arrays(args, nb_total, t):
+    k = entropy_decode.entropy_decode_chunks(*args, nb_total, t)
+    p = entropy_decode.entropy_decode_chunks_plain(*args, nb_total, t)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    return k[1].cpu().numpy()
+
+
+@pytest.mark.parametrize(
+    "case", ["uneven-density", "one-chunk-an-image", "one-block-images"])
+def test_entropy_decode_stream_shapes_equal_plain_version(cuda, case):
+    rng = np.random.RandomState(96)
+    if case == "uneven-density":
+        # flat images and one of noise: its chunks reach past the window
+        imgs = np.empty((8, 256, 256), np.uint8)
+        imgs[:] = (40 + 25 * np.arange(8)).reshape(8, 1, 1)
+        imgs[5] = rng.randint(0, 256, (256, 256))
+        streams = compress_batch(imgs, 96, precision="fast", index_stride=16)
+    elif case == "one-chunk-an-image":
+        imgs = np.stack([synthetic_image(96, 96, seed=s) for s in (1, 2, 3)])
+        streams = compress_batch(imgs, 50, index_stride=4096)
+    else:
+        imgs = rng.randint(0, 256, (2048, 8, 8)).astype(np.uint8)
+        streams = compress_batch(imgs, 50)
+    prep, args, t = _prep_args(streams, cuda)
+    assert _decode_both_arrays(args, prep["nb_total"], t).all()
+
+
+def test_entropy_decode_launch_shapes_and_window_sizes(cuda):
+    """Any launch shape and any window, none included, give the plain
+    version's result: where a word comes from is chosen by its address."""
+    imgs = np.stack([synthetic_image(128, 128, seed=s) for s in (1, 2, 3)])
+    prep, args, t = _prep_args(compress_batch(imgs, 50, index_stride=16),
+                               cuda)
+    zp, ok_p = entropy_decode.entropy_decode_chunks_plain(
+        *args, prep["nb_total"], t)
+    for shape in ((4, 4, 64), (4, 4, 0), (32, 2, 64), (1, 8, 8),
+                  (16, 1, 4096)):
+        zk = torch.zeros_like(zp)
+        ok_k = torch.empty_like(ok_p)
+        entropy_decode.launch_kernel(args[0], args[1:], t, zk, ok_k, shape)
+        assert torch.equal(zk, zp) and torch.equal(ok_k, ok_p)
+
+
+def test_entropy_decode_corrupt_chunk_arrays(cuda):
+    imgs = np.stack([synthetic_image(128, 128, seed=s) for s in (1, 2, 3)])
+    prep, args, t = _prep_args(compress_batch(imgs, 50, index_stride=16),
+                               cuda)
+    nb_total = prep["nb_total"]
+    bad = [a.clone() for a in args]
+    bad[1][3] = -7
+    bad[1][5] = 2 ** 31 - 64
+    ok = _decode_both_arrays(bad, nb_total, t)
+    assert not ok[3] and not ok[5] and np.delete(ok, [3, 5]).all()
+    keep = [k for k in range(args[1].shape[0]) if k not in (2, 7)]
+    gap = [args[0]] + [a[keep].clone() for a in args[1:]]
+    gap[3][-1] = nb_total - 1
+    ok = _decode_both_arrays(gap, nb_total, t)
+    assert not ok[-1] and ok[:-1].all()
+
+
+def test_entropy_decode_table_with_16_bit_codes(cuda):
+    def table(symbols):
+        mincode = np.zeros(17, np.int32)
+        maxcode = np.full(17, -1, np.int32)
+        valptr = np.zeros(17, np.int32)
+        code = 0
+        for l in range(1, 17):
+            valptr[l] = l - 1
+            mincode[l] = maxcode[l] = code
+            code = (code + 1) << 1
+        return mincode, maxcode, valptr, np.asarray(symbols, np.int32)
+
+    t = DecodeTables.from_numpy(
+        table([0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 15, 20, 200]),
+        table([0x01, 0x02, 0x11, 0x00, 0x03, 0x21, 0xF0, 0x12, 0x04, 0x31,
+               0x05, 0x41, 0x13, 0x22, 0x0A, 0x7A]),
+        fast_decode_matrix(50), dequant_multipliers(50), device=cuda)
+    rng = np.random.RandomState(16)
+    words = rng.randint(0, 1 << 32, 4096, dtype=np.int64).astype(np.uint32)
+    words[100:110] = 0xFFFFFFFF
+    n = 64
+    starts = np.arange(n, dtype=np.int64) * 2000
+    starts[1] = 100 * 32
+    arrays = [starts, np.full(n, 4), np.arange(n) * 4, np.zeros(n),
+              np.full(n, 2 ** 31 - 1)]
+    args = [torch.from_numpy(words.view(np.int32)).to(cuda)] + [
+        torch.from_numpy(a.astype(np.int32)).to(cuda) for a in arrays]
+    ok = _decode_both_arrays(args, 4 * n, t)
+    assert not ok[1] and ok.any()

@@ -155,6 +155,131 @@ def test_pixel_input_uses_the_fast_transform():
     assert diff.max() <= 1 and (diff != 0).sum() <= 1e-4 * diff.size
 
 
+# ---- the kernel's scan across its CTAs, as plain Python
+
+
+def run_then(older: tuple, newer: tuple) -> tuple:
+    """Composition of two runs of tiles, ``older`` first.  A run is
+    ``(has, a1, a2)`` and maps the running stream offset ``s`` to
+    ``align8(s + a1) + a2`` when it holds an image start (``has``), else
+    to ``s + a1``.  ``align8(x + y) = x + align8(y)`` for ``x`` a multiple
+    of 8 keeps the family closed; the operation is associative, not
+    commutative.  The kernel's ``then``."""
+    oh, o1, o2 = older
+    nh, n1, n2 = newer
+    if not nh:
+        return (1, o1, o2 + n1) if oh else (0, o1 + n1, 0)
+    if oh:
+        return (1, o1, ((o2 + n1 + 7) & ~7) + n2)
+    return (1, o1 + n1, n2)
+
+
+def run_apply(run: tuple, s: int) -> int:
+    has, a1, a2 = run
+    return ((s + a1 + 7) & ~7) + a2 if has else s + a1
+
+
+def tile_offsets(blk_bits: torch.Tensor, nb: int,
+                 tile: int = tenc.TILE, window: int = 32, resolved=None):
+    """The kernel's single-pass scan in plain Python: per-block global bit
+    offsets (N,) int64 from the tile sums alone, as ``image_offsets``
+    gives them.  Every tile walks back over its predecessors ``window`` at
+    a time, reduces each window pairwise in order, and stops at the
+    nearest tile that ``resolved(j)`` says already knows its end (tile -1,
+    the start of the stream, always does) -- on the card that depends on
+    timing; the result must not."""
+    per_img = blk_bits.reshape(-1, nb).to(torch.int64)
+    tpi = -(-nb // tile)
+    sums, local = [], []
+    for row in per_img:
+        for t in range(tpi):
+            part = row[t * tile:(t + 1) * tile]
+            sums.append(int(part.sum()))
+            local.append(torch.cumsum(part, 0) - part)
+    ends: list[int] = []
+    out = []
+    for g, a in enumerate(sums):
+        starts_image = g % tpi == 0
+        acc = (0, 0, 0)
+        j0 = g - 1
+        while True:
+            lanes = []
+            known = None
+            for j in range(j0, j0 - window, -1):
+                if j < 0 or (resolved is None or resolved(j)):
+                    known = 0 if j < 0 else ends[j]
+                    break
+                lanes.append((1, 0, sums[j]) if j % tpi == 0
+                             else (0, sums[j], 0))
+            while len(lanes) > 1:  # pairwise, the higher index is older
+                lanes = [run_then(lanes[i + 1], lanes[i])
+                         if i + 1 < len(lanes) else lanes[i]
+                         for i in range(0, len(lanes), 2)]
+            if lanes:
+                acc = run_then(lanes[0], acc)
+            if known is not None:
+                at = run_apply(acc, known)
+                break
+            j0 -= window
+        if starts_image:
+            at = (at + 7) & ~7
+        ends.append(at + a)
+        out.append(local[g] + at)
+    return torch.cat(out)
+
+
+@pytest.mark.parametrize(
+    "nb, images, tile, window",
+    [(64, 2, 128, 32), (300, 3, 128, 32), (1, 37, 128, 32), (4096, 1, 128, 32),
+     (100, 5, 16, 4), (33, 7, 8, 3), (40, 1, 4, 32), (5, 64, 4, 2)],
+    ids=["two-tiles", "nb-not-a-multiple-of-the-tile", "one-block-images",
+         "one-image-32-tiles", "small-tiles", "ragged-small", "B1-small",
+         "many-images-small"],
+)
+@pytest.mark.parametrize("order", ["all-resolved", "none-resolved", "random"])
+def test_tile_scan_composition_equals_image_offsets(nb, images, tile, window,
+                                                    order):
+    """The kernel's single-pass scan, in plain Python: tile sums composed
+    as runs ``s -> align8(s + a1) + a2`` give ``image_offsets``' offsets,
+    whichever predecessors already know their end when a tile looks."""
+    rng = np.random.RandomState(nb * 131 + images)
+    bits = torch.from_numpy(rng.randint(6, 1663, nb * images))
+    want, starts, total = tenc.image_offsets(bits, nb)
+    pick = np.random.RandomState(7)
+    resolved = {"all-resolved": None, "none-resolved": lambda j: False,
+                "random": lambda j: bool(pick.randint(0, 4) == 0)}[order]
+    got = tile_offsets(bits, nb, tile=tile, window=window,
+                            resolved=resolved)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    assert all(int(s) % 8 == 0 for s in starts)
+
+
+def test_run_composition_is_associative_and_matches_its_meaning():
+    rng = np.random.RandomState(11)
+
+    def rand_run():
+        if rng.randint(0, 2):
+            return (1, int(rng.randint(0, 5000)), int(rng.randint(0, 5000)))
+        return (0, int(rng.randint(0, 5000)), 0)
+
+    for _ in range(300):
+        a, b, c = rand_run(), rand_run(), rand_run()
+        s = int(rng.randint(0, 10 ** 6))
+        ab = run_then(a, b)
+        assert run_apply(ab, s) == run_apply(b, run_apply(a, s))
+        assert run_then(ab, c) == run_then(a, run_then(b, c))
+        assert run_then((0, 0, 0), a) == a == run_then(a, (0, 0, 0))
+
+
+def test_block_count_whose_offsets_would_pass_int32_is_refused():
+    assert tenc.MAX_BLOCKS * (52 * 32 + 7) < 2 ** 31
+    assert tenc.MAX_BLOCKS >= (16 << 20) // 64  # the pipeline's pixel limit
+    # a (64, N) tensor of that width without its memory: one int, expanded
+    wide = torch.empty((1,), dtype=torch.int32).expand(64, tenc.MAX_BLOCKS + 1)
+    with pytest.raises(ValueError, match="int32"):
+        tenc.encode2(wide, TABLES, 1, from_zz=True)
+
+
 def test_wrapper_validates_and_counts_no_launch_on_cpu():
     before = tenc.launches
     tenc.encode2(torch.zeros((64, 8), dtype=torch.int32), TABLES, 4,

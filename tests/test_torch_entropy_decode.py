@@ -73,7 +73,7 @@ def _assert_prep_equal(mine, theirs):
     if mine is None:
         return
     assert mine.keys() == theirs.keys()
-    for k in mine:
+    for k in theirs:
         if k == "tables":
             assert (mine[k] is None) == (theirs[k] is None)
             if mine[k] is not None:
@@ -137,6 +137,54 @@ def test_prepare_batch_rejects_a_trailer_offset_past_the_custom_payload():
     assert tcontainer.parse_block_index(bytes(data), 64) is not None
     assert ted.prepare_batch([bytes(data)]) is None
     assert jed.prepare_batch([bytes(data)]) is None
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(), dict(shape=(60, 52), stride=64), dict(stride=8),
+     dict(shape=(8, 8), stride=1, seeds=(1, 2, 3)),
+     dict(shape=(40, 24), stride=4, seeds=(4, 5, 6)),
+     dict(auto=True, seeds=(3, 3)), "corrupt-trailer"],
+    ids=["q50", "odd", "stride8", "one-block-images", "ragged-last-chunk", "auto",
+         "corrupt-trailer"],
+)
+def test_prepare_batch_chunks_tile_the_blocks(kw):
+    """The chunks cover every block once: chunk k begins where chunk k - 1
+    ends, from block 0 to ``nb_total``, every chunk non-empty -- also when
+    a trailer's offsets are garbage (they move ``chunk_start`` only)."""
+    if kw == "corrupt-trailer":
+        streams = _streams()
+        data = bytearray(streams[0])
+        start = tcontainer.parse_block_index(streams[0], 64)[2]
+        (off2,) = struct.unpack_from("<I", data, start + 8 + 4 * 2)
+        struct.pack_into("<I", data, start + 8 + 4 * 2, off2 + 9)
+        streams = [bytes(data), streams[1]]
+    else:
+        streams = _streams(**kw)
+    prep = ted.prepare_batch(streams)
+    assert prep is not None
+    base = prep["chunk_block_base"].astype(np.int64)
+    blocks = prep["chunk_blocks"].astype(np.int64)
+    assert base[0] == 0 and (blocks >= 1).all()
+    assert np.array_equal(base[1:], base[:-1] + blocks[:-1])
+    assert base[-1] + blocks[-1] == prep["nb_total"]
+    assert prep["nb_total"] == len(streams) * prep["nb_per_image"]
+
+
+def test_launch_shape_is_a_function_of_the_sizes_alone():
+    for nchunks, nwords in ((1, 3), (49, 4000), (3136, 226_000),
+                            (3136, 860_000), (12_544, 900_000),
+                            (200_000, 5_000_000), (64, 200_000)):
+        cpw, warps, stage = ted.launch_shape(nchunks, nwords)
+        assert (cpw, warps) == (ted.CHUNKS_PER_WARP, ted.WARPS_PER_CTA)
+        assert stage % 4 == 0 and 64 <= stage <= ted.MAX_STAGE_WORDS
+        # the whole CTA fits the 227 KB a block may use
+        shared = 4 * (stage + 616 + 2 * 4096)
+        assert shared <= 232_448
+    # the window follows the batch's density, up to the cap
+    assert (ted.launch_shape(3136, 226_000)[2]
+            < ted.launch_shape(3136, 860_000)[2]
+            <= ted.launch_shape(64, 200_000)[2] == ted.MAX_STAGE_WORDS)
 
 
 def test_standard_decode_tables_equal_jax():

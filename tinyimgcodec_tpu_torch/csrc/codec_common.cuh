@@ -1,16 +1,22 @@
 // Device code shared by the encode kernels (encode2.cu, encode1.cu) and
 // the stream assembly (stitch.cu): the Huffman symbol tables in shared
-// memory, the per-block symbolizer with its two bit sinks, the float32
-// fast transform and the per-image offset scans.
+// memory, the per-block symbolizer and its bit sink, the float32 fast
+// transform, and the per-image offset scans of stitch.cu.
 //
 // Both encode paths include the *same* transform and the *same*
 // symbolizer from here, so their fast-mode bytes are equal by
-// construction, not by two implementations agreeing.
+// construction, not by two implementations agreeing.  The symbolizer is a
+// template over where a coefficient comes from: encode1.cu walks device
+// memory (GlobalCoef), encode2.cu a tile it staged in shared memory
+// (TileCoef).  The transform is a device function over where a coefficient
+// goes: fast_transform_kernel stores to device memory, encode2.cu into its
+// tile.
 //
 // The fast transform is float32 and order-dependent: each coefficient is
 // the sum over pixels p = 0..63 in ascending order of x[p] * M[p][k], one
 // rounding after every multiply and every add (compiled with -fmad=false),
-// then DC - offset, then rintf (half to even).
+// then DC - offset, then rintf (half to even).  What bounds it is the
+// operation count: 2 x 64 x 64 separate multiplies and adds a block.
 
 #pragma once
 
@@ -42,11 +48,6 @@ __device__ __forceinline__ void load_tables(Tables& t, const uint32_t* dc,
     }
     __syncthreads();
 }
-
-struct CountSink {
-    int bits = 0;
-    __device__ __forceinline__ void put(uint32_t, int len) { bits += len; }
-};
 
 // Big-endian bit writer into a row of 32-bit words.  `nbits` < 32 holds
 // between calls; a put appends at most 32 bits, so one word at most
@@ -83,24 +84,40 @@ __device__ __forceinline__ uint32_t magnitude(int v, int size) {
     return ((uint32_t)v - (v < 0 ? 1u : 0u)) & ((1u << size) - 1u);
 }
 
-// Coefficient k of block b: coefficient-major (64, n) or block-major
-// (n, 64) storage.
+// Where the symbolizer reads block b's coefficients: device memory,
+// coefficient-major (64, n) or block-major (n, 64).  The DC predictor is
+// the left neighbour's DC, zero at an image's first block.
 template <bool BlockMajor>
-__device__ __forceinline__ int coef(const int* __restrict__ zz, int n, int k,
-                                    int b) {
-    return BlockMajor ? zz[(size_t)b * 64 + k] : zz[(size_t)k * n + b];
-}
+struct GlobalCoef {
+    const int* __restrict__ zz;
+    int n, b, nb;
+    __device__ __forceinline__ int at(int k, int blk) const {
+        return BlockMajor ? zz[(size_t)blk * 64 + k] : zz[(size_t)k * n + blk];
+    }
+    __device__ __forceinline__ int operator()(int k) const { return at(k, b); }
+    __device__ __forceinline__ int prev_dc() const {
+        return (b % nb == 0) ? 0 : at(0, b - 1);
+    }
+};
 
-// Symbols of block b into `sink`; returns 1 if a coefficient lies outside
+// ... or a (64, stride) tile in shared memory, one column a block (a lane
+// reads its own column: no bank conflict); the caller knows the predictor.
+struct TileCoef {
+    const int* col;
+    int stride, prev;
+    __device__ __forceinline__ int operator()(int k) const {
+        return col[k * stride];
+    }
+    __device__ __forceinline__ int prev_dc() const { return prev; }
+};
+
+// Symbols of one block into `sink`; returns 1 if a coefficient lies outside
 // the tables' range (DC category > 11 or AC size > 10; it is then clamped).
-template <class Sink, bool BlockMajor = false>
-__device__ __forceinline__ int encode_block(const int* __restrict__ zz, int n,
-                                            int b, int nb, const Tables& t,
+template <class Sink, class Coef>
+__device__ __forceinline__ int encode_block(const Coef& c, const Tables& t,
                                             Sink& sink) {
     int over = 0;
-    const int dc = coef<BlockMajor>(zz, n, 0, b);
-    const int prev = (b % nb == 0) ? 0 : coef<BlockMajor>(zz, n, 0, b - 1);
-    const int diff = (int)((uint32_t)dc - (uint32_t)prev);
+    const int diff = (int)((uint32_t)c(0) - (uint32_t)c.prev_dc());
     int cat = category(diff);
     if (cat > 11) {
         over = 1;
@@ -111,13 +128,20 @@ __device__ __forceinline__ int encode_block(const int* __restrict__ zz, int n,
              (int)(comb & 0xFFu) + cat);
 
     const int zrl_len = (int)(t.ac[ZRL_INDEX] & 0xFFu);
-    int run = 0;
-    for (int k = 1; k < 64; ++k) {
-        const int v = coef<BlockMajor>(zz, n, k, b);
-        if (v == 0) {
-            ++run;
-            continue;
-        }
+    // Which AC coefficients are nonzero: 63 loads that do not wait for one
+    // another and no branch; then one turn for each nonzero coefficient
+    // (about five a block at quality 50) instead of one for each of the 63.
+    unsigned long long nonzero = 0ull;
+#pragma unroll
+    for (int k = 1; k < 64; ++k)
+        nonzero |= (unsigned long long)(c(k) != 0) << k;
+    int last = 0;  // position of the nonzero coefficient before this one
+    while (nonzero) {
+        const int k = __ffsll((long long)nonzero) - 1;
+        nonzero &= nonzero - 1;
+        const int v = c(k);
+        const int run = k - last - 1;
+        last = k;
         int size = category(v);
         if (size > 10) {
             over = 1;
@@ -134,26 +158,21 @@ __device__ __forceinline__ int encode_block(const int* __restrict__ zz, int n,
         comb = t.ac[(run & 15) * 11 + size];
         sink.put(((comb >> 8) << size) | magnitude(v, size),
                  (int)(comb & 0xFFu) + size);
-        run = 0;
     }
     comb = t.ac[0];  // EOB, always emitted
     sink.put(comb >> 8, (int)(comb & 0xFFu));
     return over;
 }
 
-// ---- fast transform: (N, 64) uint8 pixels -> (64, N) int32 zig-zag -----
-__global__ void __launch_bounds__(ENC_THREADS)
-fast_transform_kernel(const uint8_t* __restrict__ pix,
-                      const float* __restrict__ m, float off0,
-                      int* __restrict__ zz, int n) {
-    __shared__ __align__(16) float sM[64 * 64];
-    for (int i = threadIdx.x; i < 64 * 64; i += ENC_THREADS) sM[i] = m[i];
-    __syncthreads();
-    const int b = blockIdx.x * ENC_THREADS + threadIdx.x;
-    if (b >= n) return;
-
+// ---- fast transform of one block ----------------------------------------
+// 64 pixels at `pix` (16-byte aligned), the fused matrix sM[pixel][coeff]
+// in shared memory; store(k, value) receives the 64 rounded coefficients.
+template <class Store>
+__device__ __forceinline__ void fast_transform_block(
+    const uint8_t* __restrict__ pix, const float* sM, float off0,
+    Store store) {
     float x[64];
-    const uint4* p = reinterpret_cast<const uint4*>(pix + (size_t)b * 64);
+    const uint4* p = reinterpret_cast<const uint4*>(pix);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
         const uint4 q = p[i];
@@ -187,12 +206,36 @@ fast_transform_kernel(const uint8_t* __restrict__ pix,
         for (int i = 0; i < 8; ++i) {
             const int k = kc * 8 + i;
             const float v = (k == 0) ? acc[i] - off0 : acc[i];
-            zz[(size_t)k * n + b] = (int)rintf(v);
+            store(k, (int)rintf(v));
         }
     }
 }
 
-// ---- exclusive scan of per-block bit counts inside each image -----------
+// The DC coefficient alone, in the arithmetic of fast_transform_block.
+__device__ __forceinline__ int fast_transform_dc(
+    const uint8_t* __restrict__ pix, const float* sM, float off0) {
+    float acc = (float)pix[0] * sM[0];
+    for (int q = 1; q < 64; ++q) acc = acc + (float)pix[q] * sM[q * 64];
+    return (int)rintf(acc - off0);
+}
+
+// ---- fast transform: (N, 64) uint8 pixels -> (64, N) int32 zig-zag -----
+__global__ void __launch_bounds__(ENC_THREADS)
+fast_transform_kernel(const uint8_t* __restrict__ pix,
+                      const float* __restrict__ m, float off0,
+                      int* __restrict__ zz, int n) {
+    __shared__ __align__(16) float sM[64 * 64];
+    for (int i = threadIdx.x; i < 64 * 64; i += ENC_THREADS) sM[i] = m[i];
+    __syncthreads();
+    const int b = blockIdx.x * ENC_THREADS + threadIdx.x;
+    if (b >= n) return;
+    fast_transform_block(pix + (size_t)b * 64, sM, off0, [&](int k, int v) {
+        zz[(size_t)k * n + b] = v;
+    });
+}
+
+// ---- exclusive scan of per-block bit counts inside each image (stitch.cu;
+// encode2.cu scans across its tiles in one pass of its own) ---------------
 // One CTA per image walks its nb counts in chunks of SCAN_THREADS with a
 // running carry: warp shuffles inside a warp, shared memory across warps.
 __global__ void __launch_bounds__(SCAN_THREADS)

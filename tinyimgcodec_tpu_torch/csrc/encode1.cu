@@ -50,7 +50,7 @@ encode1_kernel(const int* __restrict__ zz, const uint32_t* dc,
     const int b = base + threadIdx.x;
     if (b < n) {
         WordSink sink(rows + threadIdx.x * ROW_PAD, 0);
-        if (encode_block<WordSink, BlockMajor>(zz, n, b, nb, t, sink))
+        if (encode_block(GlobalCoef<BlockMajor>{zz, n, b, nb}, t, sink))
             atomicOr(over, 1);
         sink.flush();  // <= 1662 bits: at most 52 words
         bits[b] = sink.bits;

@@ -21,13 +21,22 @@ coefficient up to three 11-bit ZRL prefixes, the (run, size) code and the
 magnitude bits; EOB always.
 
 Replaces ``tinyimgcodec_tpu/ops/pallas_encode2.py`` (``_make_kernel``).
-On the card: ``csrc/encode2.cu`` (bound: bytes; see the note there).  The
-plain version below computes the same words with whole-tensor operations
-on int64 (torch has no 32-bit unsigned shifts on the CPU) and agrees with
-the kernel bit for bit on ``from_zz`` input.  On pixel input the two sum
-the float32 transform in different orders (the kernel pixel by pixel, the
-plain version through ``torch.matmul``), so a coefficient whose value
-before rounding sits on a tie may differ by one.
+On the card: ``csrc/encode2.cu``, one launch.  From coefficients its bound
+is bytes, and the kernel moves each once: a CTA stages a tile of 128
+blocks in shared memory, codes every block once (the packing gives the
+count), gets its stream offset from a single-pass scan across the CTAs
+(tests/test_torch_encode2.py holds that scan's arithmetic in plain Python
+against :func:`image_offsets`) and shifts the rows to their bit phase while it copies them out.  From pixels
+the bound is the float32 transform's operations; its coefficients go
+straight into the shared-memory tile, never to device memory.  The wrapper
+adds one small zero fill (the scan's state) and nothing else.
+
+The plain version below computes the same words with whole-tensor
+operations on int64 (torch has no 32-bit unsigned shifts on the CPU) and
+agrees with the kernel bit for bit on ``from_zz`` input.  On pixel input
+the two sum the float32 transform in different orders (the kernel pixel by
+pixel, the plain version through ``torch.matmul``), so a coefficient whose
+value before rounding sits on a tie may differ by one.
 """
 
 from __future__ import annotations
@@ -41,6 +50,11 @@ from . import _build
 
 ROW_WORDS = 56
 SLOTS = 65  # DC + 63 AC + EOB
+TILE = 128  # blocks a CTA of the kernel owns; tiles do not straddle images
+# A block is at most 52 words of 32 bits and an image start pads at most 7:
+# beyond this many blocks a worst-case stream's bit offsets pass int32,
+# which ``meta`` and the 32-bit value of the scan's state word carry.
+MAX_BLOCKS = (2 ** 31 - 1) // (52 * 32 + 7)
 _M32 = 0xFFFFFFFF
 
 launches = 0  # times encode2() launched the CUDA kernels
@@ -212,6 +226,10 @@ def _check(x: torch.Tensor, tables: CodecTables, nb: int,
         raise ValueError("tables and input lie on different devices")
     if nb < 1 or n == 0 or n % nb:
         raise ValueError(f"N={n} is not a positive multiple of nb={nb}")
+    if n > MAX_BLOCKS:
+        raise ValueError(
+            f"N={n} blocks: a worst-case stream's bit offsets would pass "
+            f"int32 (at most {MAX_BLOCKS} blocks)")
     return n
 
 
@@ -222,7 +240,7 @@ def _lib() -> ctypes.CDLL:
         p = ctypes.c_void_p
         fn.argtypes = [
             p, ctypes.c_int, p, ctypes.c_float, p, p, p, p,
-            p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, p,
+            p, p, p, ctypes.c_int, ctypes.c_int, p,
         ]
         fn.restype = ctypes.c_int
         ft = lib.fast_transform_launch
@@ -269,26 +287,23 @@ def encode2(x: torch.Tensor, tables: CodecTables, nb: int,
     n = _check(x, tables, nb, from_zz)
     x = x.contiguous()
     dev = x.device
-    i32 = dict(dtype=torch.int32, device=dev)
-    packed = torch.empty((n, ROW_WORDS), **i32)
-    meta = torch.empty((2, n), **i32)
-    img_bits = torch.empty((n // nb,), **i32)
-    starts = torch.empty((n // nb + 1,), **i32)
-    over = torch.zeros((1,), **i32)
-    zz_scratch = None if from_zz else torch.empty((64, n), **i32)
+    packed = torch.empty((n, ROW_WORDS), dtype=torch.int32, device=dev)
+    meta = torch.empty((2, n), dtype=torch.int32, device=dev)
+    # the scan's state, zeroed on every call: ticket, overflow flag, then
+    # one word a tile
+    tiles = (n // nb) * -(-nb // TILE)
+    scan = torch.zeros((2 + tiles,), dtype=torch.int64, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.encode2_launch(
             x.data_ptr(), int(from_zz), tables.encode_matrix.data_ptr(),
             tables.dc_offset, tables.dc_comb.data_ptr(),
             tables.ac_comb.data_ptr(), tables.zrl_hi.data_ptr(),
-            tables.zrl_lo.data_ptr(),
-            None if from_zz else zz_scratch.data_ptr(),
-            packed.data_ptr(), meta.data_ptr(), img_bits.data_ptr(),
-            starts.data_ptr(), over.data_ptr(), n, int(nb),
+            tables.zrl_lo.data_ptr(), scan.data_ptr(),
+            packed.data_ptr(), meta.data_ptr(), n, int(nb),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "encode2")
     launches += 1
     launches_by_input["zz" if from_zz else "pixels"] += 1
-    return packed, meta, over[0] > 0
+    return packed, meta, scan[1] != 0

@@ -11,11 +11,22 @@ words and chunk arrays, or ``None`` when the batch cannot take this path).
 
 Device half: :func:`entropy_decode_chunks` -> ``(zz (nb_total, 64) int32
 zig-zag coefficients with the DPCM'd DC in column 0, ok (C,) bool)``.  On
-the card it launches ``csrc/entropy_decode.cu``, one thread per chunk.
+the card it launches ``csrc/entropy_decode.cu``, one lane per chunk.
 In the JAX package this function is an XLA program and not a Pallas
 kernel; its slot budgets, resume passes, paired window tables and one-hot
 matmul reassembly are mechanism of that machine and have no counterpart
 here.
+
+What bounds the kernel is not its bytes but the serial chain of each
+chunk: a batch has only as many independent cursors as chunks, and a
+symbol cannot start before the one before it gave its length.  So the
+kernel makes the step short (a first-level lookup table,
+``DecodeTables.lookup``, instead of a length search; the CTA's part of the
+stream staged in shared memory; the next stream word fetched ahead; one
+branch for everything rare) and spreads the chunks over many warps
+(:func:`launch_shape`).  ``zz`` is zeroed before the launch and the kernel
+stores only what it decodes: zeroing the rows inside the kernel instead
+was measured and gained nothing (PERF.md), so there is one output path.
 
 Validation (the same rule as the JAX package's): a chunk is ``ok`` only if
 it decoded exactly its block count, every coefficient landed at a zig-zag
@@ -33,7 +44,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ..tables import DecodeTables
+from ..tables import CANONICAL_INTS, DecodeTables
 from . import _build
 
 # absolute per-block symbol bound: 1 DC + 63 AC values + <= 3 ZRL + EOB
@@ -44,6 +55,13 @@ MAX_BLOCK_SYMBOLS = 68
 MAX_PAYLOAD_BITS = 2 ** 31
 
 launches = 0  # times the CUDA kernel was launched through the wrapper
+
+# Launch shape of the kernel (see :func:`launch_shape`): the best measured
+# on an H100 at 12 544 chunks and within the spread of the best at 3136
+# (scripts/torch_kernel_split.py; PERF.md).
+CHUNKS_PER_WARP = 8
+WARPS_PER_CTA = 4
+MAX_STAGE_WORDS = 40960   # 160 KB of the 227 KB a CTA may use
 
 
 # ------------------------------------------------------------- host half
@@ -132,6 +150,11 @@ def prepare_batch(streams: list[bytes]):
     their payloads realigned to a byte here (the table segment ends
     off-byte); TICX offsets are payload-relative in both layouts, so the
     chunk arithmetic is the same.
+
+    The chunks tile the blocks: ``chunk_block_base`` and ``chunk_blocks``
+    come from the stride alone, never from a stream's trailer offsets, so
+    chunk ``k`` begins where chunk ``k - 1`` ends, the first at block 0
+    and the last ending at ``nb_total``, whatever the streams hold.
     """
     from .. import container
     from ..bitstream import BitReader, bits_to_bytes
@@ -260,6 +283,8 @@ def prepare_batch(streams: list[bytes]):
 def _check(words, chunk_arrays, nb_total: int, tables: DecodeTables) -> int:
     if words.dtype != torch.int32 or words.ndim != 1:
         raise ValueError("words must be a 1-D int32 tensor (uint32 bits)")
+    if words.shape[0] >= 1 << 31:
+        raise ValueError("more than 2**31 - 1 stream words")
     c = chunk_arrays[0].shape[0]
     for a in chunk_arrays:
         if a.dtype != torch.int32 or a.shape != (c,):
@@ -268,6 +293,8 @@ def _check(words, chunk_arrays, nb_total: int, tables: DecodeTables) -> int:
             raise ValueError("words and chunk arrays lie on different devices")
     if tables.device != words.device:
         raise ValueError("tables and words lie on different devices")
+    if tables.huffman.shape != (2, CANONICAL_INTS):
+        raise ValueError("tables.huffman must be (2, 307)")
     if nb_total < 1 or nb_total * 64 >= 1 << 31:
         raise ValueError(f"nb_total {nb_total} out of range")
     return c
@@ -361,24 +388,47 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("entropy_decode")
     fn = lib.entropy_decode_launch
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, p, p, p, p,
-                       ctypes.c_int, ctypes.c_int, p]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, ctypes.c_uint, p, p, p, p, p, p, p, i, p, p,
+                       i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return lib
 
 
+def launch_shape(nchunks: int, nwords: int) -> tuple[int, int, int]:
+    """``(chunks a warp, warps a CTA, words of the CTA's stream window)``
+    for a batch of ``nchunks`` chunks in ``nwords`` stream words; a
+    function of the two sizes alone, so it costs no look at the data.
+
+    The lanes of a warp step in lockstep and a warp is as slow as its
+    longest chunk, so a warp takes few chunks and the card runs many
+    warps.  The window is twice what the CTA's chunks span at the batch's
+    mean density (a chunk past it reads device memory instead), capped at
+    ``MAX_STAGE_WORDS``."""
+    per_cta = CHUNKS_PER_WARP * WARPS_PER_CTA
+    span = -(-nwords * per_cta // max(nchunks, 1))
+    stage = min(MAX_STAGE_WORDS, (2 * span + 64 + 3) // 4 * 4)
+    return CHUNKS_PER_WARP, WARPS_PER_CTA, stage
+
+
 def launch_kernel(words: torch.Tensor, arrays, tables: DecodeTables,
-                  zz: torch.Tensor, ok: torch.Tensor) -> None:
-    """The kernel launch alone, into a zeroed ``zz`` (nb_total, 64) and an
-    ``ok`` (C,) uint8: what :func:`entropy_decode_chunks` does after its
-    zero fill (a measurement can time just this)."""
+                  zz: torch.Tensor, ok: torch.Tensor,
+                  shape: tuple[int, int, int] | None = None) -> None:
+    """The kernel launch alone, into ``zz`` (nb_total, 64) int32, zeroed
+    by the caller (the kernel stores only the coefficients it decodes),
+    and ``ok`` (C,) bool: what :func:`entropy_decode_chunks` does after it
+    allocated them (a measurement can time just this).  ``shape``: another
+    launch shape than :func:`launch_shape` gives (a measurement's sweep; a
+    check of the reads outside a small or empty window)."""
+    cpw, warps, stage = shape or launch_shape(ok.shape[0], words.shape[0])
+    bits = tables.lookup.shape[1].bit_length() - 1
     with torch.cuda.device(words.device):
         err = _lib().entropy_decode_launch(
             words.data_ptr(), words.shape[0],
             *(a.data_ptr() for a in arrays),
-            tables.huffman.data_ptr(), zz.data_ptr(), ok.data_ptr(),
-            ok.shape[0], zz.shape[0],
+            tables.huffman.data_ptr(), tables.lookup.data_ptr(), bits,
+            zz.data_ptr(), ok.data_ptr(), ok.shape[0], zz.shape[0],
+            cpw, warps, stage,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "entropy_decode")
@@ -398,11 +448,16 @@ def entropy_decode_chunks(
     ``chunk_blocks``: its block count; ``chunk_block_base``: its first
     global block index; ``chunk_end_lo`` / ``chunk_end_hi``: inclusive
     bounds its final cursor must land in.  All as :func:`prepare_batch`
-    makes them.  ``tables.huffman`` carries the canonical tables.
+    makes them.  ``tables.huffman`` carries the canonical tables,
+    ``tables.lookup`` the first-level table made from them.  Chunks must
+    not share blocks.
+
+    Blocks that no chunk owns, and what a chunk did not decode, are zero
+    in ``zz``.
 
     Returns ``(zz (nb_total, 64) int32, ok (C,) bool)``.  CUDA tensors go
-    to the kernel (``zz`` is zero-filled here first), CPU tensors to the
-    plain version; nothing else is tried.
+    to the kernel, CPU tensors to the plain version; nothing else is
+    tried.
     """
     if words.device.type == "cpu":
         return entropy_decode_chunks_plain(
@@ -417,7 +472,7 @@ def entropy_decode_chunks(
     c = _check(words, arrays, nb_total, tables)
     words = words.contiguous()
     zz = torch.zeros((nb_total, 64), dtype=torch.int32, device=words.device)
-    ok = torch.empty((c,), dtype=torch.uint8, device=words.device)
+    ok = torch.empty((c,), dtype=torch.bool, device=words.device)
     launch_kernel(words, arrays, tables, zz, ok)
     launches += 1
-    return zz, ok.to(torch.bool)
+    return zz, ok

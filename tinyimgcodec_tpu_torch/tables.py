@@ -204,6 +204,74 @@ def standard_decode_tables():
 
 
 HUFFVAL_SLOTS = 256  # huffval is zero-padded to this many entries
+CANONICAL_INTS = 3 * 17 + HUFFVAL_SLOTS  # one table of ``DecodeTables.huffman``
+# Index width of the entropy decoder's first-level table.  Chosen on the
+# card among 8..11 (PERF.md): the standard tables' frequent codes are
+# at most 9 bits long, wider tables only cost shared memory.
+LOOKUP_BITS = 10
+
+
+def canonical_decode(window16: np.ndarray, table) -> tuple:
+    """The decoder's length rule on 16-bit windows: ``(length, symbol)``
+    arrays, the first ``l`` in 1..16 with ``window >> (16 - l) <=
+    maxcode[l]`` and ``huffval[clamp(valptr[l] + code - mincode[l], 0,
+    255)]``; length 0 (and symbol 0) where no code of the table matches.
+    ``table``: ``(mincode, maxcode, valptr, huffval)``."""
+    mincode, maxcode, valptr, huffval = (np.asarray(a, np.int64)
+                                         for a in table)
+    hv = np.zeros(HUFFVAL_SLOTS, np.int64)
+    hv[: len(huffval)] = huffval
+    w = np.asarray(window16, np.int64)
+    length = np.zeros(w.shape, np.int64)
+    symbol = np.zeros(w.shape, np.int64)
+    for l in range(1, 17):
+        code = w >> (16 - l)
+        hit = (length == 0) & (code <= maxcode[l])
+        idx = np.clip(valptr[l] + code - mincode[l], 0, HUFFVAL_SLOTS - 1)
+        length[hit] = l
+        symbol[hit] = hv[idx[hit]]
+    return length, symbol
+
+
+def first_level_lookup(table, bits: int = LOOKUP_BITS) -> np.ndarray:
+    """(2**bits,) int32 first-level decode table: entry ``i`` answers every
+    window whose leading ``bits`` bits are ``i`` with ``symbol << 8 |
+    length`` when a code of at most ``bits`` bits matches, else 0 (the
+    decoder then goes on with the canonical search from ``bits + 1``).
+    A window's leading bits decide any match of that length, so the entry
+    is :func:`canonical_decode` of ``i`` followed by zero bits, kept where
+    the length fits."""
+    if not 1 <= bits <= 12:
+        raise ValueError(f"lookup width {bits} outside 1..12")
+    window = np.arange(1 << bits, dtype=np.int64) << (16 - bits)
+    length, symbol = canonical_decode(window, table)
+    keep = (length >= 1) & (length <= bits)
+    return np.where(keep, (symbol << 8) | length, 0).astype(np.int32)
+
+
+LOOKUP_EOB = 1 << 14
+
+
+def pack_lookup(entries: np.ndarray, dc: bool) -> np.ndarray:
+    """:func:`first_level_lookup` entries -> the words the kernel reads,
+    with everything a decode step needs already worked out: bits 0..4 the
+    bits to advance (code length + value size; 0 = no code this short),
+    5..8 the value's size, 9..13 the zig-zag step, bit 14 end of block.
+    DC table: size = min(symbol, 15), step 0.  AC table: size = symbol &
+    15, step = run + 1 (16 with size 0 for ZRL); symbol 0 is EOB (size 0,
+    step 0).  The kernel's ``pack_entry`` does the same for the codes the
+    table leaves to the canonical search."""
+    e = np.asarray(entries, np.int64)
+    length, sym = e & 0xFF, e >> 8
+    if dc:
+        size = np.minimum(sym, 15)
+        packed = (length + size) | (size << 5)
+    else:
+        size = sym & 15
+        step = ((sym >> 4) & 15) + 1
+        packed = np.where(sym == 0, length | LOOKUP_EOB,
+                          (length + size) | (size << 5) | (step << 9))
+    return np.where(length > 0, packed, 0).astype(np.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,12 +283,16 @@ class DecodeTables:
     kernel's table argument, the same layout for the standard tables and
     for a stream's own.  ``fast_matrix`` / ``exact_matrix``: the fused
     dequantize + inverse-DCT matrix [zig-zag coefficient, pixel] in
-    float32 and float64.
+    float32 and float64.  ``lookup``: (2, 2**bits) int32, the first-level
+    table of :func:`first_level_lookup` for DC then AC in the packed form
+    of :func:`pack_lookup`, derived from ``huffman`` once per batch so
+    that the kernel answers most symbols with one shared-memory read.
     """
 
     huffman: torch.Tensor
     fast_matrix: torch.Tensor
     exact_matrix: torch.Tensor
+    lookup: torch.Tensor
 
     @property
     def device(self) -> torch.device:
@@ -228,26 +300,34 @@ class DecodeTables:
 
     @classmethod
     def from_numpy(cls, dc_table, ac_table, fast_matrix, multipliers,
-                   device: str | torch.device = "cpu") -> "DecodeTables":
+                   device: str | torch.device = "cpu",
+                   lookup_bits: int = LOOKUP_BITS) -> "DecodeTables":
         """``dc_table`` / ``ac_table``: ``(mincode, maxcode, valptr,
         huffval)`` tuples as :func:`standard_decode_tables` or
         ``ops.entropy_decode.canonical_tables`` return them;
         ``fast_matrix`` (64, 64) float32; ``multipliers`` (8, 8) float64
-        (:func:`dequant_multipliers`)."""
+        (:func:`dequant_multipliers`).  Symbols are bytes: a ``huffval``
+        outside 0..255 is refused."""
         dev = torch.device(device)
         rows = []
         for mincode, maxcode, valptr, huffval in (dc_table, ac_table):
             hv = np.zeros(HUFFVAL_SLOTS, np.int32)
             hv[: len(huffval)] = np.asarray(huffval, np.int32)
+            if hv.min() < 0 or hv.max() > 255:
+                raise ValueError("huffval entries must lie in 0..255")
             rows.append(np.concatenate([
                 np.asarray(mincode, np.int32), np.asarray(maxcode, np.int32),
                 np.asarray(valptr, np.int32), hv,
             ]))
         packed = np.stack(rows)
-        if packed.shape != (2, 3 * 17 + HUFFVAL_SLOTS):
+        if packed.shape != (2, CANONICAL_INTS):
             raise ValueError(f"decode tables of shape {packed.shape}")
+        lookup = np.stack([
+            pack_lookup(first_level_lookup(t, lookup_bits), dc)
+            for t, dc in ((dc_table, True), (ac_table, False))])
         return cls(
             huffman=torch.from_numpy(packed).to(dev),
+            lookup=torch.from_numpy(lookup).to(dev),
             fast_matrix=torch.from_numpy(
                 np.ascontiguousarray(fast_matrix, np.float32).copy()
             ).reshape(64, 64).to(dev),
