@@ -14,11 +14,12 @@ the port's main path -- the round trip: ``compress_batch`` of a 49 x 512 x
 the float64 host oracle, shows from the launch counters that the path went
 through the kernels and from the engine's counters which decode leg took
 each image, and times every kernel at the corpus shapes beside its plain
-version and its bound.  The two kernels that were redesigned for this card,
-``entropy_decode`` and ``encode2``, are also held against their plain
-versions at the shapes that steer their copy paths (odd block counts, one
-huge image, thousands of one-block images, streams denser than the staged
-window, corrupt chunk arrays).
+version and its bound.  The kernels that were redesigned for this card --
+``entropy_decode``, ``encode2``, ``place`` and ``encode1`` -- are also held
+against their plain versions at the shapes that steer their paths (odd
+block counts, ragged tiles, one huge image, thousands of one-block images,
+streams denser than the staged window, corrupt chunk arrays, blocks of a
+few bits, capacities that cut a block or dwarf the stream).
 
 Output: one JSON object per phase, then the ``{"kernels": [...]}`` line,
 the card's name and power limit as ``nvidia-smi`` prints them, and as the
@@ -60,8 +61,13 @@ REHEARSE = "--rehearse" in sys.argv[1:]
 SANITIZE_ONLY = "--sanitize-corrupt" in sys.argv[1:]
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's line; ``at_s``: seconds since the script began."""
+    at = round(time.perf_counter() - T_START, 1)
+    print(json.dumps({"phase": phase, "at_s": at, **kw}), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -75,7 +81,9 @@ if not REHEARSE and not torch.cuda.is_available():
 
 import tinyimgcodec_tpu_torch as codec  # noqa: E402
 from tinyimgcodec_tpu_torch import container  # noqa: E402
-from tinyimgcodec_tpu_torch.corpus import synthetic_corpus  # noqa: E402
+from tinyimgcodec_tpu_torch.corpus import (  # noqa: E402
+    blocks_of_random_bits, synthetic_corpus,
+)
 from tinyimgcodec_tpu_torch.device import card_info  # noqa: E402
 from tinyimgcodec_tpu_torch.engine import (  # noqa: E402
     Engine, _host_decode_blocks,
@@ -162,8 +170,9 @@ def device_split(fn, reps: int, kernel: str) -> dict | None:
         if dev_us is None:
             dev_us = getattr(ev, "cuda_time_total", 0.0)
         if str(getattr(ev, "device_type", "")).endswith("CUDA") and dev_us > 0:
-            launches[ev.key[:80]] = ev.count / reps
-            micros[ev.key[:80]] = dev_us / reps
+            key = ev.key[:80]  # kernels that share these 80 characters add up
+            launches[key] = launches.get(key, 0.0) + ev.count / reps
+            micros[key] = micros.get(key, 0.0) + dev_us / reps
     own = sum(v for k, v in launches.items() if kernel in k)
     if own != 1:
         fail(f"profiler: {kernel} launched {own} times a call; it saw "
@@ -229,6 +238,10 @@ def phase_build() -> None:
         usage[name] = {
             "registers": [int(m.group(1)) for ln in lines
                           if (m := re.search(r"Used (\d+) registers", ln))],
+            # static shared memory; 0 where ptxas names none
+            "static_shared_bytes": [
+                int(m.group(1)) if (m := re.search(r"(\d+) bytes smem", ln))
+                else 0 for ln in lines if "Used " in ln and "registers" in ln],
             "spilling": [ln for ln in lines if "spill stores" in ln
                          and not ln.startswith("0 bytes stack frame, "
                                                "0 bytes spill stores")],
@@ -398,6 +411,29 @@ def phase_kernel_check(corpus: np.ndarray) -> dict:
     return errs
 
 
+def one_large_image(corpus: np.ndarray) -> np.ndarray:
+    """(1, 4096, 4096): corpus images tiled up to the pipeline's pixel
+    limit (64x64 in a rehearsal)."""
+    side = 64 if REHEARSE else 4096
+    reps = -(-side // corpus.shape[1])
+    picks = corpus[np.arange(reps * reps) % corpus.shape[0]]
+    big = picks.reshape(reps, reps, *corpus.shape[1:]).transpose(
+        0, 2, 1, 3).reshape(reps * corpus.shape[1], -1)[None, :side, :side]
+    return np.ascontiguousarray(big)
+
+
+def worst_case_coefficients(rng, n: int) -> np.ndarray:
+    """(64, n) int32: the longest legal block (63 coefficients of size 10
+    with 16-bit codes, 1662 bits) alternating with short ones, so that it
+    meets every bit phase."""
+    zz = np.zeros((64, n), np.int32)
+    zz[0] = np.where(np.arange(n) % 2 == 0, 1000, -1000)
+    zz[1:] = rng.randint(512, 1024, (63, n)) * rng.choice([-1, 1], (63, n))
+    zz[1:, 1::2] = 0
+    zz[5, 1::2] = rng.randint(1, 8, n // 2)
+    return zz
+
+
 def encode2_both(label: str, zz: torch.Tensor, tables: CodecTables,
                  nb: int) -> tuple:
     """``encode2`` from coefficients by the kernel and by the plain
@@ -473,13 +509,9 @@ def phase_encode2_shapes(corpus: np.ndarray) -> tuple[int, dict]:
     both_forms("4096 x 8x8, nb 1",
                noise(64 if REHEARSE else 4096, 8, 8), 75)
     # one image at the pipeline's pixel limit: 2048 tiles in one chain
-    side = 64 if REHEARSE else 4096
-    reps = -(-side // corpus.shape[1])
-    picks = corpus[np.arange(reps * reps) % corpus.shape[0]]
-    big = picks.reshape(reps, reps, *corpus.shape[1:]).transpose(
-        0, 2, 1, 3).reshape(reps * corpus.shape[1], -1)[None, :side, :side]
-    big = np.ascontiguousarray(big)
-    tables, blocks, zz, nb = both_forms(f"1 x {side}x{side}", big, 50)
+    big = one_large_image(corpus)
+    tables, blocks, zz, nb = both_forms(
+        f"1 x {big.shape[1]}x{big.shape[2]}", big, 50)
     first = encode2.encode2(zz, tables, nb, from_zz=True)
     for _ in range(20):  # the same answer every time
         again = encode2.encode2(zz, tables, nb, from_zz=True)
@@ -501,12 +533,7 @@ def phase_encode2_shapes(corpus: np.ndarray) -> tuple[int, dict]:
     # codes, 1662 bits) between short ones, so that it meets every phase
     tables = CodecTables.build(50, DEV)
     n = 512
-    worst_zz = np.zeros((64, n), np.int32)
-    worst_zz[0] = np.where(np.arange(n) % 2 == 0, 1000, -1000)
-    worst_zz[1:] = rng.randint(512, 1024, (63, n)) * rng.choice(
-        [-1, 1], (63, n))
-    worst_zz[1:, 1::2] = 0
-    worst_zz[5, 1::2] = rng.randint(1, 8, n // 2)
+    worst_zz = worst_case_coefficients(rng, n)
     (_, meta, over), err = encode2_both(
         "worst-case blocks", torch.from_numpy(worst_zz).to(DEV), tables, 64)
     worst = max(worst, err)
@@ -532,6 +559,243 @@ def phase_encode2_shapes(corpus: np.ndarray) -> tuple[int, dict]:
          tolerance="rows, meta and flag equal to the plain version; pixel "
          "form equal to the plain coding of the transform kernel's "
          "coefficients; 20 repeated calls identical")
+    return worst, one_image
+
+
+def handmade_rows(image_bits: list, seed: int) -> tuple:
+    """Blocks of the given bit lengths filled with random bits, as the
+    encode kernel would hand them to ``place``: (packed, meta, nb) on the
+    device."""
+    packed, meta, nb, _ = blocks_of_random_bits(image_bits, seed)
+    return (torch.from_numpy(packed.view(np.int32)).to(DEV),
+            torch.from_numpy(meta).to(DEV), nb)
+
+
+def phase_place_shapes(corpus: np.ndarray) -> tuple[int, dict]:
+    """``place`` against its plain version at the shapes that steer the
+    gather: spans that end inside and on image boundaries, thousands of
+    one-block images (pad bits everywhere), the longest legal block at
+    every bit phase, hand-made blocks of 6 and of 2 bits (6 and 16 a
+    word), pads that share a word with both neighbours, one block, one
+    4096x4096 image; each at the exact capacity, one word short, half, the
+    pipeline's retry capacity and ten times the stream, into a buffer full
+    of ones, twice.  Returns the largest |kernel - plain| and the times at
+    the retry capacity and on the one image."""
+    rng = np.random.RandomState(29)
+    worst = 0
+    report = []
+
+    def check(label, packed, meta, nb, more_caps=()):
+        nonlocal worst
+        n = packed.shape[0]
+        total = int(meta[0, -1]) + int(meta[1, -1])
+        fits = -(-total // 32)
+        caps = sorted({fits, max(fits - 1, 1), max(fits // 2, 1), n * 52,
+                       10 * fits, *more_caps})
+        for cap in caps:
+            k = place.place(packed, meta, nb, cap)
+            p = place.place_plain(packed, meta, nb, cap)
+            sync()
+            worst = max(worst, max_abs_diff(*((k[i], p[i]) for i in range(4))))
+            if not (all(eq(k[i], p[i]) for i in range(3))
+                    and bool(k[3]) == bool(p[3]) == (cap < fits)
+                    and k[2].dtype == p[2].dtype and k[3].dtype == p[3].dtype
+                    and k[2].shape == p[2].shape == k[3].shape == ()):
+                fail(f"place[{label}, cap={cap}]: kernel and plain version "
+                     f"differ (stream {int((k[0] != p[0]).sum())} words, "
+                     f"total {int(k[2])}/{int(p[2])}, overflow "
+                     f"{bool(k[3])}/{bool(p[3])})")
+            if DEV.type == "cuda":
+                # every word is stored, whatever the buffer held; and again
+                buf = torch.full((cap,), -1, dtype=torch.int32, device=DEV)
+                for _ in range(2):
+                    place.launch_kernel(packed, meta, buf)
+                    if not eq(buf, p[0]):
+                        fail(f"place[{label}, cap={cap}]: a word of the "
+                             "buffer was left as it was")
+        report.append({"case": label, "blocks": n, "nb": nb,
+                       "total_bits": total, "capacities": caps})
+
+    def encoded(images, quality):
+        tables = CodecTables.build(quality, DEV)
+        blocks = blocks_of(images)
+        nb = blocks.shape[0] // images.shape[0]
+        zz = exact_transform.exact_transform(blocks, tables)[0]
+        packed, meta, _ = encode2.encode2(zz, tables, nb, from_zz=True)
+        return packed, meta, nb
+
+    noise = lambda *shape: rng.randint(0, 256, shape).astype(np.uint8)
+    check("3 x 40x72, nb 45", *encoded(noise(3, 40, 72), 90))
+    check("3 x 136x152, nb 323", *encoded(noise(3, 136, 152), 90))
+    check("4 x 128x128, nb 256: spans end on image boundaries",
+          *encoded(synthetic_corpus(4, 128), 50),
+          more_caps=(4 * 128 * 128 * 4 // 32,))
+    check("4096 x 8x8, nb 1", *encoded(noise(64 if REHEARSE else 4096, 8, 8),
+                                       75))
+    tables = CodecTables.build(50, DEV)
+    packed, meta, _ = encode2.encode2(
+        torch.from_numpy(worst_case_coefficients(rng, 512)).to(DEV), tables,
+        64, from_zz=True)
+    longest = meta[1] == 1662
+    phases = torch.unique(meta[0][longest] & 31).tolist()
+    if not {0, 31} <= set(phases):
+        fail(f"place[worst-case blocks]: phases met {phases}")
+    check("worst-case blocks", packed, meta, 64)
+    for label, image_bits in (
+        ("6-bit blocks, six a word", [[6] * 600] * 3),
+        ("2-bit blocks, sixteen a word", [[2] * 700] * 2),
+        ("1662 bits at phases 0 and 31", [[1662, 6, 27, 1662, 6, 6, 6, 9]] * 2),
+        ("pads share words", [[6, 6, 5, 2], [6, 3, 7, 1], [2, 2, 2, 3]]),
+        ("one block", [[13]]),
+    ):
+        check(label, *handmade_rows(image_bits, len(label)))
+    # one image at the pipeline's pixel limit: the longest blocks between
+    # short ones take the bit offsets towards 2**28; the tiled corpus
+    # image is the one timed
+    nb = 64 if REHEARSE else 512 * 512
+    packed, meta, _ = encode2.encode2(
+        torch.from_numpy(worst_case_coefficients(rng, nb)).to(DEV), tables,
+        nb, from_zz=True)
+    if not REHEARSE and int(meta[0, -1]) < 1 << 27:
+        fail("place[one image of worst-case blocks]: offsets stay below "
+             "2**27 bits")
+    check("1 x 4096x4096 of worst-case blocks", packed, meta, nb)
+    del packed, meta
+    big = one_large_image(corpus)
+    packed, meta, nb = encoded(big, 50)
+    cap = -(-int(big.size * 4.0) // 32)
+    check("1 x 4096x4096", packed, meta, nb, more_caps=(cap,))
+    reps = 1 if REHEARSE else 20
+    owned = int((((meta[0] & 31) + meta[1] + 31) >> 5).sum())
+    nbytes = owned * 4 + nb * 8 + cap * 4
+    times = {"one_image_4096x4096": {
+        "blocks": nb, "capacity_words": cap,
+        "ms": time_ms(lambda: place.place(packed, meta, nb, cap), reps),
+        "bound_ms": nbytes / MEM_BYTES_PER_S * 1e3}}
+    emit("place_shapes", cases=report,
+         tolerance="stream, image starts, total and flag equal to the plain "
+         "version, dtypes and shapes too; every word of a buffer full of "
+         "ones rewritten; two launches identical")
+    return worst, times
+
+
+def phase_encode1_shapes(corpus: np.ndarray) -> tuple[int, dict]:
+    """``encode1`` against its plain version at the shapes that steer its
+    tile: block counts of 1 and around the tile of 128, images of 1, 43,
+    45, 300 and 323 blocks (predictor resets inside a tile, several a
+    tile), a coefficient tensor off 16-byte alignment, the 1662-bit block
+    beside 6-bit ones, both overflow flags, one 4096x4096 image, repeated
+    calls.  Coefficient form: equal bit for bit.  Pixel form: equal to the
+    plain coding of the transform kernel's own coefficients.  Returns the
+    largest |kernel - plain| and the times of the one-image case."""
+    rng = np.random.RandomState(31)
+    worst = 0
+    report = []
+
+    def from_zz(label, zz_bm, tables, nb):
+        nonlocal worst
+        k = encode1.encode1(zz_bm, tables, nb, from_zz=True)
+        p = encode1.encode1_plain(zz_bm, tables, nb, from_zz=True)
+        sync()
+        worst = max(worst, max_abs_diff((k[0], p[0]), (k[1], p[1])))
+        if not (eq(k[0], p[0]) and eq(k[1], p[1]) and bool(k[2]) == bool(p[2])
+                and k[2].dtype == p[2].dtype and k[2].shape == ()):
+            fail(f"encode1[{label}, from_zz]: kernel and plain version "
+                 f"differ (words {int((k[0] != p[0]).sum())}, bits "
+                 f"{int((k[1] != p[1]).sum())}, overflow "
+                 f"{bool(k[2])}/{bool(p[2])})")
+        return k
+
+    def both_forms(label, images, quality):
+        nonlocal worst
+        tables = CodecTables.build(quality, DEV)
+        blocks = blocks_of(images)
+        n = blocks.shape[0]
+        nb = n // images.shape[0]
+        zz_bm = exact_transform.exact_transform(blocks, tables)[0].T.contiguous()
+        first = from_zz(label, zz_bm, tables, nb)
+        # one word off 16-byte alignment: the 4-byte loads, same words
+        buf = torch.empty(zz_bm.numel() + 1, dtype=torch.int32, device=DEV)
+        shifted = buf[1:].view(zz_bm.shape)
+        shifted.copy_(zz_bm)
+        if DEV.type == "cuda" and shifted.data_ptr() % 16 == 0:
+            fail("the misaligned view is aligned")
+        again = from_zz(label + ", misaligned", shifted, tables, nb)
+        if not (eq(again[0], first[0]) and eq(again[1], first[1])):
+            fail(f"encode1[{label}]: the two load paths differ")
+        zzf = encode2.fast_coefficients(blocks, tables).T.contiguous()
+        k = encode1.encode1(blocks, tables, nb)
+        p = encode1.encode1_plain(zzf, tables, nb, from_zz=True)
+        sync()
+        worst = max(worst, max_abs_diff((k[0], p[0]), (k[1], p[1])))
+        if not (eq(k[0], p[0]) and eq(k[1], p[1]) and bool(k[2]) == bool(p[2])):
+            fail(f"encode1[{label}, pixels]: words differ from the plain "
+                 "entropy coding of the transform kernel's coefficients")
+        report.append({"case": label, "blocks": n, "nb": nb,
+                       "tiles": -(-n // 128)})
+        return tables, blocks, zz_bm, nb
+
+    noise = lambda *shape: rng.randint(0, 256, shape).astype(np.uint8)
+    both_forms("1 x 8x8: one block", noise(1, 8, 8), 90)
+    both_forms("1 x 8x1016, nb 127", noise(1, 8, 1016), 90)
+    both_forms("127 x 8x8, nb 1", noise(127, 8, 8), 75)
+    both_forms("3 x 8x344, nb 43: N 129", noise(3, 8, 344), 90)
+    both_forms("3 x 40x72, nb 45", noise(3, 40, 72), 90)
+    both_forms("1 x 120x160, nb 300", synthetic_corpus(1, 160)[:, :120], 50)
+    both_forms("300 x 8x8, nb 1", noise(300, 8, 8), 50)
+    both_forms("3 x 136x152, nb 323", noise(3, 136, 152), 90)
+    both_forms("4096 x 8x8, nb 1", noise(64 if REHEARSE else 4096, 8, 8), 75)
+    tables, blocks, zz_bm, nb = both_forms("1 x 4096x4096",
+                                           one_large_image(corpus), 50)
+    first = encode1.encode1(blocks, tables, nb)
+    for _ in range(5):  # the same answer every time
+        again = encode1.encode1(blocks, tables, nb)
+        if not (eq(again[0], first[0]) and eq(again[1], first[1])):
+            fail("encode1: repeated calls on one input differ")
+    reps_t = 1 if REHEARSE else 20
+    n = blocks.shape[0]
+    one_image = {
+        "blocks": n,
+        "pixels_ms": time_ms(lambda: encode1.encode1(blocks, tables, nb),
+                             reps_t),
+        "from_zz_ms": time_ms(
+            lambda: encode1.encode1(zz_bm, tables, nb, from_zz=True), reps_t),
+        "pixels_bound_ms": n * (2 * 64 * 64 + 64 * 8) / FP32_PER_S * 1e3,
+        "from_zz_bound_ms": n * (256 + 212) / MEM_BYTES_PER_S * 1e3,
+    }
+    del blocks, zz_bm, first, again
+    # the 1662-bit block (52 full words) next to 6-bit ones, ragged tiles
+    tables = CodecTables.build(50, DEV)
+    for n, nb in ((512, 64), (129, 43), (135, 45)):
+        zz = worst_case_coefficients(rng, n + n % 2)[:, :n]
+        zz[1:, 1::2] = 0
+        # long blocks' DCs alternate (a difference of 11 bits); a short
+        # block repeats its neighbour's: difference 0, no AC, 6 bits
+        zz[0, 0::2] = np.where(np.arange(zz[0, 0::2].size) % 2 == 0, 1000,
+                               -1000)
+        zz[0, 1::2] = zz[0, 0::2][: n // 2]
+        _, bits, over = from_zz(
+            f"worst-case blocks, N {n}",
+            torch.from_numpy(np.ascontiguousarray(zz.T)).to(DEV), tables, nb)
+        if int(bits.max()) != 1662 or int(bits.min()) != 6 or bool(over):
+            fail(f"encode1[worst-case blocks, N {n}]: bits "
+                 f"{int(bits.min())}..{int(bits.max())}")
+        report.append({"case": f"worst-case blocks, N {n}, nb {nb}",
+                       "max_bits": int(bits.max()),
+                       "min_bits": int(bits.min())})
+    for label, col, value in (("DC difference of 12 bits", 0, 2048),
+                              ("AC coefficient of 11 bits", 7, 1024),
+                              ("AC coefficient of 11 bits, last", 63, -1024)):
+        flagged = np.zeros((300, 64), np.int32)
+        flagged[270, col] = value
+        if not bool(from_zz(label, torch.from_numpy(flagged).to(DEV), tables,
+                            100)[2]):
+            fail(f"encode1[{label}]: overflow flag not raised")
+        report.append({"case": label, "overflow": True})
+    emit("encode1_shapes", cases=report, one_image=one_image,
+         tolerance="words, bits and flag equal to the plain version, aligned "
+         "and misaligned; pixel form equal to the plain coding of the "
+         "transform kernel's coefficients; 5 repeated calls identical")
     return worst, one_image
 
 
@@ -1011,10 +1275,13 @@ def phase_main_path(corpus: np.ndarray) -> tuple[dict, list[bytes]]:
 
 
 def phase_kernels(corpus: np.ndarray, launched: dict, errs: dict,
-                  streams: list[bytes], one_image: dict) -> list:
-    """Every kernel at the corpus shapes: time, plain time, bound.
-    ``streams``: the main path's exact corpus streams, for the decoder;
-    ``one_image``: ``encode2``'s times on one 4096x4096 image."""
+                  streams: list[bytes], one_image: dict, place_times: dict,
+                  encode1_image: dict) -> list:
+    """Every kernel at the corpus shapes: time, plain time, bound, and the
+    device time of every launch inside its wrapper.  ``streams``: the main
+    path's exact corpus streams, for the decoder; ``one_image``,
+    ``place_times``, ``encode1_image``: the times of ``encode2``, ``place``
+    and ``encode1`` on one 4096x4096 image."""
     quality = 50
     reps = 1 if REHEARSE else 20
     tables = CodecTables.build(quality, DEV)
@@ -1065,6 +1332,9 @@ def phase_kernels(corpus: np.ndarray, launched: dict, errs: dict,
         time_ms(lambda: exact_transform.exact_transform_plain(blocks, tables),
                 max(1, reps // 4)),
         n * (64 + 260) + 2 * 64 * 8, n * (2 * 2 * 512 + 64), FP64_PER_S,
+        device_split=device_split(
+            lambda: exact_transform.exact_transform(blocks, tables), reps,
+            "exact_transform_kernel"),
     ))
     # encode2 from coefficients: 256 B in, 224 + 8 B out; ~8 integer
     # operations per coefficient
@@ -1119,7 +1389,32 @@ def phase_kernels(corpus: np.ndarray, launched: dict, errs: dict,
             lambda: acc.zero_().index_add_(0, idx_k, words_k), reps),
         kernel_only_ms=kernel_only(
             lambda buf: place.launch_kernel(packed, meta, buf), cap, reps),
+        device_split=device_split(
+            lambda: place.place(packed, meta, nb, cap), reps, "place_kernel"),
+        # the pipeline's second try after a capacity overflow: 52 words a
+        # block, nearly all of them zeros that the kernel stores
+        retry_capacity={
+            "capacity_words": n * 52,
+            "ms": time_ms(lambda: place.place(packed, meta, nb, n * 52), reps),
+            "bound_ms": (owned * 4 + n * 8 + n * 52 * 4)
+            / MEM_BYTES_PER_S * 1e3},
+        **place_times,
     ))
+    # encode1 from block-major coefficients, on no pipeline path: 256 B in
+    zz_bm = zz.T.contiguous()
+    encode1_from_zz = {
+        "ms": time_ms(
+            lambda: encode1.encode1(zz_bm, tables, nb, from_zz=True), reps),
+        "bound_ms": (n * (256 + 212) + table_bytes) / MEM_BYTES_PER_S * 1e3,
+        "device_split": device_split(
+            lambda: encode1.encode1(zz_bm, tables, nb, from_zz=True), reps,
+            "encode1_kernel"),
+        "one_image_4096x4096": {
+            "blocks": encode1_image["blocks"],
+            "ms": encode1_image["from_zz_ms"],
+            "bound_ms": encode1_image["from_zz_bound_ms"]},
+    }
+    del zz_bm
     # encode1 from pixels (the form the v1 path feeds): 64 B in, 208 + 4 B
     # out per block, the 64x64 float32 product and ~8 integer operations a
     # coefficient
@@ -1132,6 +1427,13 @@ def phase_kernels(corpus: np.ndarray, launched: dict, errs: dict,
                 max(1, reps // 4)),
         n * (64 + 212) + table_bytes + 64 * 64 * 4,
         n * (2 * 64 * 64 + 64 * 8), FP32_PER_S,
+        device_split=device_split(
+            lambda: encode1.encode1(blocks, tables, nb), reps,
+            "encode1_kernel"),
+        one_image_4096x4096={"blocks": encode1_image["blocks"],
+                             "ms": encode1_image["pixels_ms"],
+                             "bound_ms": encode1_image["pixels_bound_ms"]},
+        from_zz=encode1_from_zz,
     ))
     # stitch: reads the row words that hold bits and the counts, writes
     # the stream
@@ -1148,6 +1450,9 @@ def phase_kernels(corpus: np.ndarray, launched: dict, errs: dict,
         kernel_only_ms=kernel_only(
             lambda buf: stitch.launch_kernels(words1, bits1, nb, buf),
             cap, reps),
+        device_split=device_split(
+            lambda: stitch.stitch(words1, bits1, nb, cap), reps,
+            "stitch_kernel"),
     ))
     # entropy_decode: reads the stream words, the chunk arrays and the
     # tables, writes 256 B a block; per symbol a table lookup, the value
@@ -1339,7 +1644,6 @@ def phase_timing(corpus: np.ndarray, streams: list[bytes]) -> None:
 
 
 def main() -> None:
-    t_start = time.perf_counter()
     info = phase_device()
     phase_build()
     if SANITIZE_ONLY:
@@ -1351,11 +1655,16 @@ def main() -> None:
     errs = phase_kernel_check(corpus)
     shapes_err, one_image = phase_encode2_shapes(corpus)
     errs["encode2"] = max(errs["encode2"], shapes_err)
+    place_err, place_times = phase_place_shapes(corpus)
+    errs["place"] = max(errs["place"], place_err)
+    encode1_err, encode1_image = phase_encode1_shapes(corpus)
+    errs["encode1"] = max(errs["encode1"], encode1_err)
     errs["entropy_decode"] = phase_decode_check(corpus)
     launched, exact_streams = phase_main_path(corpus)
-    kernels = phase_kernels(corpus, launched, errs, exact_streams, one_image)
+    kernels = phase_kernels(corpus, launched, errs, exact_streams, one_image,
+                            place_times, encode1_image)
     phase_timing(corpus, exact_streams)
-    emit("done", seconds=round(time.perf_counter() - t_start, 1))
+    emit("done", seconds=round(time.perf_counter() - T_START, 1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info, flush=True)
     if REHEARSE:

@@ -6,10 +6,13 @@ Run from the root of a checkout, on a machine with an NVIDIA card:
     python3 scripts/torch_kernel_split.py
 
 At the corpus shape (49 images of 512x512, quality 50) it calls the
-``encode2`` wrapper in both input forms and the ``entropy_decode`` wrapper
-under ``torch.profiler`` and prints, for each, the device time of every
-kernel and memset the wrapper launches (mean microseconds a call), beside
-the wrapper's CUDA-event median.  It also prints the sha256 of the
+wrappers of the encode kernels (``encode2`` and ``encode1`` in both input
+forms, ``place`` at the pipeline's capacity and at its retry capacity,
+``stitch``, ``exact_transform``) and the ``entropy_decode`` wrapper under
+``torch.profiler`` and prints, for each, the device time of every kernel,
+memset and small tensor operation the wrapper launches (mean microseconds a
+call), beside the wrapper's CUDA-event median and the host time of a call
+that does not wait for the card.  It also prints the sha256 of the
 concatenated fast-mode and exact-mode corpus streams, so that two trees can
 be compared byte for byte.  It reads only the package's public functions,
 so the same script runs on an older tree of the port, for a comparison
@@ -24,6 +27,7 @@ import hashlib
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -38,7 +42,8 @@ import tinyimgcodec_tpu_torch as codec  # noqa: E402
 from tinyimgcodec_tpu_torch.corpus import synthetic_corpus  # noqa: E402
 from tinyimgcodec_tpu_torch.device import card_info  # noqa: E402
 from tinyimgcodec_tpu_torch.ops import (  # noqa: E402
-    _build, encode2, entropy_decode, exact_transform, transform,
+    _build, encode1, encode2, entropy_decode, exact_transform, place, stitch,
+    transform,
 )
 from tinyimgcodec_tpu_torch.tables import CodecTables, DecodeTables  # noqa: E402
 
@@ -63,11 +68,26 @@ def event_median_ms(fn) -> float:
     return float(np.median(times))
 
 
+def host_us_per_call(fn) -> float:
+    """Host time of one call that does not wait for the card: the rate at
+    which the wrapper's Python enqueues its work (mean of ``CALLS`` calls
+    back to back, one synchronisation before and after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CALLS):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / CALLS * 1e6
+
+
 def split(label: str, fn) -> None:
-    """Device time by kernel name over ``CALLS`` calls of ``fn``."""
+    """Device time by kernel name over ``CALLS`` calls of ``fn``, beside
+    the wrapper's CUDA-event median and its host time a call."""
     from torch.profiler import ProfilerActivity, profile
 
     ms = event_median_ms(fn)
+    host_us = host_us_per_call(fn)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(CALLS):
             fn()
@@ -79,11 +99,15 @@ def split(label: str, fn) -> None:
             dev_us = getattr(ev, "cuda_time_total", 0.0)
         on_device = str(getattr(ev, "device_type", "")).endswith("CUDA")
         if on_device and dev_us > 0:
-            rows[ev.key[:60]] = {"us_per_call": dev_us / CALLS,
-                                 "launches_per_call": ev.count / CALLS}
+            # names cut to 100 characters; kernels that still share a name
+            # add up
+            row = rows.setdefault(ev.key[:100], {"us_per_call": 0.0,
+                                                 "launches_per_call": 0.0})
+            row["us_per_call"] += dev_us / CALLS
+            row["launches_per_call"] += ev.count / CALLS
     total = sum(r["us_per_call"] for r in rows.values())
     print(json.dumps({
-        "wrapper": label, "event_median_ms": ms,
+        "wrapper": label, "event_median_ms": ms, "host_us_per_call": host_us,
         "device_us_per_call": total,
         "kernels": rows if rows else "the profiler reported no device time",
     }), flush=True)
@@ -156,6 +180,29 @@ def sweep_decode_shapes(args, prep, dtab) -> None:
                       "words": int(args[0].shape[0])}), flush=True)
 
 
+def split_assembly_and_v1(corpus, tables, blocks, zz, nb) -> None:
+    """``place`` (at the pipeline's first capacity, 4 bits a pixel, and at
+    its retry capacity, 52 words a block), the v1 kernels ``encode1`` and
+    ``stitch``, and ``exact_transform``, each split by launch."""
+    n = blocks.shape[0]
+    cap = -(-int(corpus.size * 4.0) // 32)
+    packed, meta, _ = encode2.encode2(zz, tables, nb, from_zz=True)
+    split("place", lambda: place.place(packed, meta, nb, cap))
+    split("place at the retry capacity",
+          lambda: place.place(packed, meta, nb, n * 52))
+    buf = torch.zeros(cap, dtype=torch.int32, device=DEV)
+    print(json.dumps({"place_kernel_alone_ms": event_median_ms(
+        lambda: place.launch_kernel(packed, meta, buf))}), flush=True)
+    split("encode1 from pixels", lambda: encode1.encode1(blocks, tables, nb))
+    zz_bm = zz.T.contiguous()  # block-major (N, 64)
+    split("encode1 from coefficients",
+          lambda: encode1.encode1(zz_bm, tables, nb, from_zz=True))
+    words, bits, _ = encode1.encode1(blocks, tables, nb)
+    split("stitch", lambda: stitch.stitch(words, bits, nb, cap))
+    split("exact_transform",
+          lambda: exact_transform.exact_transform(blocks, tables))
+
+
 def main() -> None:
     print(json.dumps({"card": card_info(), "torch": torch.__version__}),
           flush=True)
@@ -171,6 +218,7 @@ def main() -> None:
     split("encode2 from pixels", lambda: encode2.encode2(blocks, tables, nb))
     split("fast_coefficients (the transform alone)",
           lambda: encode2.fast_coefficients(blocks, tables))
+    split_assembly_and_v1(corpus, tables, blocks, zz, nb)
 
     exact = codec.compress_batch(corpus, 50, precision="exact", device=DEV)
     fast = codec.compress_batch(corpus, 50, precision="fast", device=DEV)

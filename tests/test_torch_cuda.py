@@ -15,9 +15,10 @@ import torch
 from tinyimgcodec_tpu_torch import (
     compress_batch, container, decompress, decompress_batch,
 )
+from tinyimgcodec_tpu_torch.corpus import blocks_of_random_bits
 from tinyimgcodec_tpu_torch.engine import Engine
 from tinyimgcodec_tpu_torch.ops import (
-    encode1, encode2, entropy_decode, exact_transform, place, stitch,
+    _build, encode1, encode2, entropy_decode, exact_transform, place, stitch,
 )
 from tinyimgcodec_tpu_torch.ops import transform
 from tinyimgcodec_tpu_torch.pipeline import (
@@ -382,3 +383,150 @@ def test_entropy_decode_table_with_16_bit_codes(cuda):
         torch.from_numpy(a.astype(np.int32)).to(cuda) for a in arrays]
     ok = _decode_both_arrays(args, 4 * n, t)
     assert not ok[1] and ok.any()
+
+
+# ---- the shapes that steer place's gather -----------------------------------
+
+
+def _place_both(packed, meta, nb):
+    """Kernel == plain version at the exact capacity, one word short, half,
+    the pipeline's retry capacity and ten times the stream; every word of
+    a buffer full of ones is rewritten."""
+    n = packed.shape[0]
+    total = int(meta[0, -1]) + int(meta[1, -1])
+    fits = -(-total // 32)
+    before = place.launches
+    caps = sorted({fits, max(fits - 1, 1), max(fits // 2, 1), n * 52,
+                   10 * fits})
+    for cap in caps:
+        k = place.place(packed, meta, nb, cap)
+        p = place.place_plain(packed, meta, nb, cap)
+        assert all(torch.equal(x, y) for x, y in zip(k, p))
+        assert [x.dtype for x in k] == [y.dtype for y in p]
+        assert bool(k[3]) == (cap < fits)
+        buf = torch.full((cap,), -1, dtype=torch.int32, device=packed.device)
+        place.launch_kernel(packed, meta, buf)
+        assert torch.equal(buf, p[0])
+    assert place.launches == before + len(caps)
+
+
+@pytest.mark.parametrize(
+    "shape, quality",
+    [((3, 40, 72), 90),       # N = 135: one ragged span
+     ((3, 136, 152), 90),     # nb = 323: spans end inside images
+     ((4, 128, 128), 50),     # nb = 256: spans end on image boundaries
+     ((4096, 8, 8), 75),      # pad bits before every block
+     ((1, 1024, 2048), 90)],  # one image, offsets past 2**24 bits
+    ids=["N135", "nb323", "nb256", "one-block-images", "one-image"],
+)
+def test_place_shapes_equal_plain_version(cuda, shape, quality):
+    imgs = np.random.RandomState(29).randint(0, 256, shape).astype(np.uint8)
+    t = CodecTables.build(quality, cuda)
+    blocks = _blocks(imgs, cuda).contiguous()
+    nb = blocks.shape[0] // shape[0]
+    zz, _ = exact_transform.exact_transform(blocks, t)
+    packed, meta, _ = encode2.encode2(zz, t, nb, from_zz=True)
+    _place_both(packed, meta, nb)
+
+
+@pytest.mark.parametrize(
+    "image_bits",
+    [[[6] * 600] * 3,                            # six blocks a word
+     [[2] * 700] * 2,                            # sixteen a word
+     [[1662, 6, 27, 1662, 6, 6, 6, 9]] * 2,      # 1662 bits, phases 0 and 31
+     [[6, 6, 5, 2], [6, 3, 7, 1], [2, 2, 2, 3]],  # pads share words
+     [[13]]],                                    # one block
+    ids=["six-a-word", "sixteen-a-word", "longest-block", "pads", "one-block"],
+)
+def test_place_handmade_blocks_equal_plain_version(cuda, image_bits):
+    packed, meta, nb, bits = blocks_of_random_bits(image_bits, 7)
+    packed = torch.from_numpy(packed.view(np.int32)).to(cuda)
+    meta = torch.from_numpy(meta).to(cuda)
+    _place_both(packed, meta, nb)
+    cap = -(-len(bits) // 32)
+    padded = np.zeros(cap * 32, np.uint8)
+    padded[:len(bits)] = bits
+    want = np.packbits(padded).view(">u4").astype(np.uint32)
+    got = place.place(packed, meta, nb, cap)[0].cpu().numpy().view(np.uint32)
+    assert np.array_equal(got, want)
+
+
+# ---- the shapes that steer encode1's tile -----------------------------------
+
+
+def _encode1_both(zz_bm, t, nb):
+    a = encode1.encode1(zz_bm, t, nb, from_zz=True)
+    b = encode1.encode1_plain(zz_bm, t, nb, from_zz=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert a[2].dtype == torch.bool and a[2].shape == ()
+    return a
+
+
+@pytest.mark.parametrize(
+    "shape, quality",
+    [((1, 8, 8), 90),         # one block
+     ((1, 8, 1016), 90),      # N = 127: one ragged tile
+     ((127, 8, 8), 75),       # nb = 1: the predictor resets at every block
+     ((3, 8, 344), 90),       # N = 129, nb = 43
+     ((3, 40, 72), 90),       # nb = 45: several resets a tile
+     ((1, 120, 160), 50),     # nb = 300: ragged third tile
+     ((3, 136, 152), 90),     # nb = 323
+     ((1, 1024, 2048), 50)],  # 256 tiles
+    ids=["N1", "N127", "nb1", "N129-nb43", "nb45", "nb300", "nb323",
+         "one-image"],
+)
+def test_encode1_shapes_equal_plain_version(cuda, shape, quality):
+    imgs = np.random.RandomState(31).randint(0, 256, shape).astype(np.uint8)
+    t = CodecTables.build(quality, cuda)
+    blocks = _blocks(imgs, cuda).contiguous()
+    nb = blocks.shape[0] // shape[0]
+    before = encode1.launches
+    zz_bm = exact_transform.exact_transform(blocks, t)[0].T.contiguous()
+    first = _encode1_both(zz_bm, t, nb)
+    # one word off 16-byte alignment: the 4-byte loads, same words
+    buf = torch.empty(zz_bm.numel() + 1, dtype=torch.int32, device=cuda)
+    shifted = buf[1:].view(zz_bm.shape)
+    shifted.copy_(zz_bm)
+    assert shifted.data_ptr() % 16
+    again = _encode1_both(shifted, t, nb)
+    assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+    # pixel form: the plain coding of the transform kernel's coefficients
+    zk = encode2.fast_coefficients(blocks, t).T.contiguous()
+    a = encode1.encode1(blocks, t, nb)
+    b = encode1.encode1_plain(zk, t, nb, from_zz=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert encode1.launches == before + 3
+
+
+@pytest.mark.parametrize("n, nb", [(512, 64), (129, 43), (135, 45)])
+def test_encode1_longest_block_and_overflow_flags(cuda, n, nb):
+    rng = np.random.RandomState(3)
+    t = CodecTables.build(50, cuda)
+    zz = np.zeros((n, 64), np.int32)
+    zz[:, 0] = np.where(np.arange(n) % 4 == 0, 1000, -1000)
+    zz[:, 1:] = rng.randint(512, 1024, (n, 63)) * rng.choice([-1, 1], (n, 63))
+    zz[1::2] = 0
+    zz[1::2, 0] = zz[0::2, 0][: n // 2]  # difference 0, no AC: 6 bits
+    _, bits, over = _encode1_both(torch.from_numpy(zz).to(cuda), t, nb)
+    assert int(bits.max()) == 1662 and int(bits.min()) == 6 and not bool(over)
+    for col, value in ((0, 2048), (7, 1024), (63, -1024)):
+        flagged = np.zeros((n, 64), np.int32)
+        flagged[n - 30, col] = value
+        assert bool(_encode1_both(torch.from_numpy(flagged).to(cuda), t,
+                                  nb)[2])
+
+
+def test_stream_handle_is_the_current_stream(cuda):
+    """The handle the two redesigned wrappers launch on is the current
+    stream's, also inside a ``torch.cuda.stream`` block."""
+    dev = torch.zeros(1, device=cuda).device  # with its index
+    assert _build.stream_handle(dev) == \
+        torch.cuda.current_stream(dev).cuda_stream
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        assert _build.stream_handle(dev) == side.cuda_stream
+        packed, meta, nb, _ = blocks_of_random_bits([[13, 6, 40]], 1)
+        out = place.place(torch.from_numpy(packed.view(np.int32)).to(dev),
+                          torch.from_numpy(meta).to(dev), nb, 4)
+    side.synchronize()
+    assert int(out[2]) == 59 and not bool(out[3])

@@ -1,7 +1,11 @@
 """Block-local entropy encode (the v1 path's first kernel): the port's
 plain version (the CUDA kernel's twin, bit for bit on coefficient input)
-vs the JAX package's Pallas kernel in interpret mode.  Every case has the
-shape (128, 64), nb = 64, so the JAX side compiles once per input form."""
+vs the JAX package's Pallas kernel in interpret mode.  Most cases have the
+shape (128, 64), nb = 64, so the JAX side compiles once per input form; the
+ragged shapes (block counts that are no multiple of the CUDA kernel's tile
+of 128, images of 1 and of 45 blocks) compile once each."""
+
+import functools
 
 import jax
 import numpy as np
@@ -21,11 +25,17 @@ from conftest import synthetic_image
 N, NB = 128, 64
 TABLES = {q: CodecTables.build(q, "cpu") for q in (50, 90)}
 
-# jitted like the JAX pipeline's own stage: traced and compiled once
-_JAX_FROM_ZZ = jax.jit(
-    lambda zz: encode_pallas(zz, 50, nb=NB, bt=64, interpret=True,
-                             from_zz=True)
-)
+
+# jitted like the JAX pipeline's own stage: traced and compiled once a shape
+@functools.cache
+def _jax_from_zz(n, nb):
+    bt = 64 if n % 64 == 0 else n  # one tile where 64 does not divide n
+    return jax.jit(
+        lambda zz: encode_pallas(zz, 50, nb=nb, bt=bt, interpret=True,
+                                 from_zz=True)
+    )
+
+
 _JAX_PIXELS = {
     q: jax.jit(lambda x, q=q: encode_pallas(x, q, nb=NB, bt=64,
                                             interpret=True))
@@ -49,26 +59,36 @@ def _coefficients(quality=50, noise=False) -> np.ndarray:
     return np.ascontiguousarray(co.astype(np.int32))
 
 
-def _both(zz: np.ndarray, quality=50):
-    wj, bj, oj = _JAX_FROM_ZZ(zz)  # the tables do not depend on quality
+def _both(zz: np.ndarray, quality=50, nb=NB):
+    # the tables do not depend on quality
+    wj, bj, oj = _jax_from_zz(zz.shape[0], nb)(zz)
     wt, bt, ot = tenc.encode1(torch.from_numpy(zz.copy()), TABLES[quality],
-                              NB, from_zz=True)
+                              nb, from_zz=True)
     mine = (wt.numpy().view(np.uint32), bt.numpy(), bool(ot))
     theirs = (np.asarray(wj), np.asarray(bj), bool(oj))
     return mine, theirs
 
 
-def _assert_equal(mine, theirs):
-    assert mine[0].shape == theirs[0].shape == (N, 52)
+def _assert_equal(mine, theirs, n=N):
+    assert mine[0].shape == theirs[0].shape == (n, 52)
     assert np.array_equal(mine[1], theirs[1]), "bit counts differ"
     assert np.array_equal(mine[0], theirs[0]), "words differ"
     assert mine[2] == theirs[2]
 
 
+# (n, nb): the seed shape, then block counts around the CUDA kernel's tile
+# of 128 and images of 1 and 45 blocks (several predictor resets a tile)
+SHAPES = [(128, 64), (1, 1), (127, 127), (127, 1), (129, 43), (300, 300),
+          (300, 1), (135, 45)]
+
+
+@pytest.mark.parametrize("n, nb", SHAPES,
+                         ids=[f"N{n}-nb{nb}" for n, nb in SHAPES])
 @pytest.mark.parametrize("quality, noise", [(50, False), (90, True)])
-def test_coefficient_input_all_outputs_equal(quality, noise):
-    mine, theirs = _both(_coefficients(quality, noise), quality)
-    _assert_equal(mine, theirs)
+def test_coefficient_input_all_outputs_equal(quality, noise, n, nb):
+    zz = np.resize(_coefficients(quality, noise), (n, 64))
+    mine, theirs = _both(zz, quality, nb)
+    _assert_equal(mine, theirs, n)
     assert not mine[2]
 
 
@@ -110,16 +130,20 @@ def test_long_zero_runs(gap):
     _assert_equal(*_both(zz))
 
 
-def test_worst_case_block_fills_the_row():
+@pytest.mark.parametrize("n, nb", [(128, 64), (129, 43), (135, 45)])
+def test_worst_case_block_fills_the_row(n, nb):
     """63 AC coefficients of size 10 with 16-bit codes: 1662 bits, all 52
-    words of the row."""
+    words of the row; every other block is the shortest one, 6 bits."""
     rng = np.random.RandomState(3)
-    zz = np.zeros((N, 64), np.int32)
-    zz[:, 0] = np.where(np.arange(N) % 2 == 0, 1500, -1500)
-    zz[:, 1:] = rng.randint(512, 1024, (N, 63)) * rng.choice([-1, 1], (N, 63))
-    mine, theirs = _both(zz)
-    _assert_equal(mine, theirs)
+    zz = np.zeros((n, 64), np.int32)
+    zz[:, 0] = np.where(np.arange(n) % 4 == 0, 1500, -1500)
+    zz[:, 1:] = rng.randint(512, 1024, (n, 63)) * rng.choice([-1, 1], (n, 63))
+    zz[1::2] = 0
+    zz[1::2, 0] = zz[0::2, 0][: n // 2]  # DC difference 0, no AC: 6 bits
+    mine, theirs = _both(zz, nb=nb)
+    _assert_equal(mine, theirs, n)
     assert mine[1].max() >= 1600 and mine[0][:, 51].any()
+    assert mine[1].min() == 6
 
 
 @pytest.mark.parametrize(

@@ -1,7 +1,13 @@
 """Word placement: the port's plain version (the CUDA kernel's twin) vs
 the JAX package's ``assemble_cm`` in interpret mode under each of its
 three routings (bt=64: the v4 matmul scatter with the v3 masked roll
-behind a cond; bt=8: the v2 delta chain)."""
+behind a cond; bt=8: the v2 delta chain).
+
+The CUDA kernel is a gather over the output words (``csrc/place.cu``);
+:func:`gather_model` below is that kernel's arithmetic in plain Python --
+spans of blocks, word ownership, bisection in the block ends, the walk
+over the covering blocks -- held against the plain version, against the
+JAX package and against streams built bit by bit."""
 
 import functools
 
@@ -12,6 +18,7 @@ import torch
 
 from tinyimgcodec_tpu import container as jcontainer
 from tinyimgcodec_tpu.ops.pallas_place import assemble_cm
+from tinyimgcodec_tpu_torch.corpus import blocks_of_random_bits
 from tinyimgcodec_tpu_torch.ops import encode2 as tenc
 from tinyimgcodec_tpu_torch.ops import place as tplace
 from tinyimgcodec_tpu_torch.ops import transform as ttransform
@@ -116,3 +123,135 @@ def test_wrapper_validates_and_counts_no_launch_on_cpu():
         tplace.place(packed, meta, 48, 1024)
     with pytest.raises(ValueError):
         tplace.place(packed.to(torch.int64), meta, nb, 1024)
+
+
+# ---- the CUDA kernel's gather, in plain Python -----------------------------
+
+
+def gather_model(packed, meta, nb, cap, span):
+    """What ``place_kernel`` computes, CTA by CTA and thread by thread.  A
+    CTA stages ``span`` consecutive blocks and owns the words whose first
+    bit lies at or after its first block's offset and before the next
+    span's; a word is the OR of row word ``t - (offset >> 5)`` of every
+    block from the first whose end lies past the word's first bit to the
+    last that begins inside the word.  Asserts that every word below
+    ``cap`` is stored exactly once."""
+    rows = packed.numpy().view(np.uint32)
+    off = meta[0].numpy().astype(np.int64)
+    end = off + meta[1].numpy()
+    n = off.shape[0]
+    total = int(end[-1])
+    stream = np.full(cap, 0xDEADBEEF, np.uint32)
+    stores = np.zeros(cap, np.int64)
+    for b0 in range(0, n, span):
+        live = min(span, n - b0)
+        nxt = int(off[b0 + live]) if b0 + live < n else total
+        first = 0 if b0 == 0 else (int(off[b0]) + 31) >> 5
+        last = min((nxt + 31) >> 5, cap)
+        for t in range(first, last):
+            lo = 32 * t
+            # least i of the span with end[i] > lo, or live
+            b = b0 + int(np.searchsorted(end[b0:b0 + live], lo, "right"))
+            acc = 0
+            while b < n and off[b] < lo + 32:
+                j = t - (int(off[b]) >> 5)
+                if j < 56:
+                    acc |= int(rows[b, j])
+                b += 1
+            stream[t] = acc
+            stores[t] += 1
+    used = min((total + 31) >> 5, cap)
+    stream[used:] = 0
+    stores[used:] += 1
+    assert (stores == 1).all(), "a word with no owner or with two"
+    return stream, off[::nb], total, total > cap * 32
+
+
+SPANS = [1, 5, 64, 256]
+
+
+def _model_equals_plain(packed, meta, nb, cap, span):
+    sm, stm, totm, ovm = gather_model(packed, meta, nb, cap, span)
+    sp, stp, totp, ovp = tplace.place_plain(packed, meta, nb, cap)
+    assert np.array_equal(sm, sp.numpy().view(np.uint32))
+    assert np.array_equal(stm, stp.numpy())
+    assert totm == int(totp) and ovm == bool(ovp)
+    return sm
+
+
+def _handmade(image_bits, seed=0):
+    """:func:`blocks_of_random_bits` as tensors, and the stream built bit
+    by bit."""
+    packed, meta, nb, stream_bits = blocks_of_random_bits(image_bits, seed)
+    return (torch.from_numpy(packed.view(np.int32)), torch.from_numpy(meta),
+            nb, stream_bits)
+
+
+def _words_of(stream_bits, cap):
+    padded = np.zeros(max(cap, -(-len(stream_bits) // 32)) * 32, np.uint8)
+    padded[:len(stream_bits)] = stream_bits
+    return np.packbits(padded).view(">u4").astype(np.uint32)[:cap]
+
+
+HANDMADE = {
+    # six blocks of the shortest standard length meet in a word
+    "six-bit-blocks": [[6] * 16] * 3,
+    # nothing builds that number in: sixteen blocks a word
+    "two-bit-blocks": [[2] * 40] * 2,
+    # the longest legal block at phase 0, then at phase 31 (53 words of 56)
+    "longest-at-phases-0-and-31": [[1662, 6, 27, 1662, 6, 6, 6, 9]] * 2,
+    # three images whose pad bits share words with both neighbours
+    "pads-share-words": [[6, 6, 5, 2], [6, 3, 7, 1], [2, 2, 2, 3]],
+    "one-block": [[13]],
+    # a block that begins and ends inside a word next to five others, and
+    # span boundaries (span 5) that fall on image boundaries (nb 5)
+    "image-boundary-on-span-boundary": [[6, 6, 7, 6, 6], [40, 3, 6, 6, 70],
+                                        [6, 1662, 6, 6, 6]],
+}
+
+
+@pytest.mark.parametrize("span", SPANS)
+@pytest.mark.parametrize("case", sorted(HANDMADE))
+def test_gather_model_on_handmade_meta(case, span):
+    packed, meta, nb, bits = _handmade(HANDMADE[case], seed=len(case))
+    fits = -(-len(bits) // 32)
+    if case.startswith("longest"):
+        assert {int(o) & 31 for o, c in zip(meta[0], meta[1])
+                if c == 1662} >= {0, 31}
+    for cap in (fits, max(fits - 1, 1), 10 * fits):
+        got = _model_equals_plain(packed, meta, nb, cap, span)
+        assert np.array_equal(got, _words_of(bits, cap))
+        assert bool(tplace.place(packed, meta, nb, cap)[3]) == (cap < fits)
+
+
+@pytest.mark.parametrize("span", SPANS)
+@pytest.mark.parametrize("content", ["natural", "noise"])
+def test_gather_model_on_encoded_content(content, span):
+    imgs, quality = (NATURAL, 50) if content == "natural" else (NOISE, 90)
+    packed, meta, nb = _encoded(imgs, quality)
+    total = int(meta[0, -1]) + int(meta[1, -1])
+    fits = -(-total // 32)
+    for cap in (fits, fits - 1, imgs.size * 4 // 32, 128 * 52):
+        _model_equals_plain(packed, meta, nb, cap, span)
+
+
+@pytest.mark.parametrize("case", ["six-bit-blocks",
+                                  "longest-at-phases-0-and-31"])
+def test_handmade_meta_equals_the_jax_kernel(case):
+    packed, meta, nb, bits = _handmade(HANDMADE[case], seed=len(case))
+    cap = -(-len(bits) // 32) + 3
+    mine, total, over = _compare(packed, meta, nb, cap, 8)
+    assert total == len(bits) and not over
+    assert np.array_equal(mine, _words_of(bits, cap))
+    assert np.array_equal(gather_model(packed, meta, nb, cap, 5)[0], mine)
+
+
+def test_overflow_limit_does_not_wrap_at_32_bits():
+    """``cap_words * 32`` passes 2**31 from 2**26 words on; the flag must
+    stay false there (the kernel computes the limit in 64 bits, the plain
+    version clamps it to what an int32 total can reach)."""
+    packed, meta, nb, _ = _handmade(HANDMADE["one-block"])
+    for cap in (1 << 26, (1 << 31) - 1):
+        _, total, over = tplace._summary(meta, nb, cap)
+        assert int(total) == 13 and not bool(over)
+    assert bool(tplace._summary(meta, nb, 0)[2])

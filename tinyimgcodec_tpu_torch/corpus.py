@@ -1,7 +1,8 @@
 """Deterministic synthetic test corpus.
 
 Stands in for the reference's 49 numbered 512x512 grayscale images with
-images of similar statistics, generated from fixed seeds.
+images of similar statistics, generated from fixed seeds; and encoded
+blocks of any bit lengths for the stream assembly.
 """
 
 from __future__ import annotations
@@ -25,3 +26,34 @@ def synthetic_corpus(n: int = 49, size: int = 512) -> np.ndarray:
         )
         out[i] = np.clip(img, 0, 255).astype(np.uint8)
     return out
+
+
+def blocks_of_random_bits(image_bits, seed: int = 0):
+    """Encoded blocks of the given bit lengths, filled with random bits.
+
+    ``image_bits``: one list of block lengths (at most 1664 bits each) an
+    image, all equally long.  Returns ``(packed, meta, nb, stream_bits)``
+    in the layout of the fused encode kernel's outputs: ``packed`` (N, 56)
+    uint32 rows shifted to their block's bit phase and zero outside its
+    bits, ``meta`` (2, N) int32 global bit offsets (every image's start
+    rounded up to a byte) and bit counts, and the whole stream as one
+    array of bits, built independently of the rows."""
+    rng = np.random.RandomState(seed)
+    nb = len(image_bits[0])
+    offs, lens, pos = [], [], 0
+    for lengths in image_bits:
+        if len(lengths) != nb:
+            raise ValueError("every image needs the same number of blocks")
+        pos = (pos + 7) & ~7
+        for ln in lengths:
+            offs.append(pos)
+            lens.append(ln)
+            pos += ln
+    stream_bits = np.zeros(pos, np.uint8)
+    rows = np.zeros((len(offs), 56 * 32), np.uint8)
+    for b, (o, ln) in enumerate(zip(offs, lens)):
+        chunk = rng.randint(0, 2, ln).astype(np.uint8)
+        stream_bits[o:o + ln] = chunk
+        rows[b, (o & 31):(o & 31) + ln] = chunk
+    packed = np.packbits(rows, axis=1).view(">u4").astype(np.uint32)
+    return packed, np.array([offs, lens], np.int32), nb, stream_bits

@@ -6,11 +6,11 @@
 // Both encode paths include the *same* transform and the *same*
 // symbolizer from here, so their fast-mode bytes are equal by
 // construction, not by two implementations agreeing.  The symbolizer is a
-// template over where a coefficient comes from: encode1.cu walks device
-// memory (GlobalCoef), encode2.cu a tile it staged in shared memory
-// (TileCoef).  The transform is a device function over where a coefficient
-// goes: fast_transform_kernel stores to device memory, encode2.cu into its
-// tile.
+// template over where a coefficient comes from; both kernels give it a
+// column of a tile they staged in shared memory (TileCoef).  The transform
+// is a device function over where a coefficient goes: both kernels store
+// into that tile, fast_transform_kernel (the transform alone, for
+// measurements and tests) to device memory.
 //
 // The fast transform is float32 and order-dependent: each coefficient is
 // the sum over pixels p = 0..63 in ascending order of x[p] * M[p][k], one
@@ -84,24 +84,10 @@ __device__ __forceinline__ uint32_t magnitude(int v, int size) {
     return ((uint32_t)v - (v < 0 ? 1u : 0u)) & ((1u << size) - 1u);
 }
 
-// Where the symbolizer reads block b's coefficients: device memory,
-// coefficient-major (64, n) or block-major (n, 64).  The DC predictor is
-// the left neighbour's DC, zero at an image's first block.
-template <bool BlockMajor>
-struct GlobalCoef {
-    const int* __restrict__ zz;
-    int n, b, nb;
-    __device__ __forceinline__ int at(int k, int blk) const {
-        return BlockMajor ? zz[(size_t)blk * 64 + k] : zz[(size_t)k * n + blk];
-    }
-    __device__ __forceinline__ int operator()(int k) const { return at(k, b); }
-    __device__ __forceinline__ int prev_dc() const {
-        return (b % nb == 0) ? 0 : at(0, b - 1);
-    }
-};
-
-// ... or a (64, stride) tile in shared memory, one column a block (a lane
-// reads its own column: no bank conflict); the caller knows the predictor.
+// Where the symbolizer reads a block's coefficients: a (64, stride) tile
+// in shared memory, one column a block (a lane reads its own column: no
+// bank conflict); the caller knows the predictor, the left neighbour's DC
+// or zero at an image's first block.
 struct TileCoef {
     const int* col;
     int stride, prev;

@@ -21,6 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(
     os.environ.get(
@@ -116,6 +118,17 @@ def build_all() -> None:
         started = [(n, *_start(n)) for n in todo]
         for n, st, out in started:
             _finish(n, st, out)
+
+
+def stream_handle(device: torch.device) -> int:
+    """The ``cudaStream_t`` of ``device``'s current stream, as a launch
+    takes it.  Read without building a ``torch.cuda.Stream`` object where
+    this PyTorch can (a wrapper calls this once a launch, and the object
+    costs more host time than a small kernel runs on the card)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None and device.index is not None:
+        return raw(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check(err: int, what: str) -> None:

@@ -18,8 +18,11 @@ they are the ``version="v1"`` encode path, whose bytes equal the
 ``encode2`` + ``place`` path's.
 
 Replaces ``tinyimgcodec_tpu/ops/pallas_encode.py`` (``_make_kernel``).  On
-the card: ``csrc/encode1.cu`` (see the note there); it runs the same
-device code for the transform and the symbols as ``csrc/encode2.cu``.
+the card: ``csrc/encode1.cu`` (see the note there), one launch: a CTA
+stages a tile of 128 blocks in shared memory (from pixels the transform
+writes into it, so no coefficient matrix exists in device memory), codes
+every block once and copies the rows out 16 bytes a store.  It runs the
+same device code for the transform and the symbols as ``csrc/encode2.cu``.
 The plain version shares :func:`..encode2.block_slots` with
 ``encode2_plain`` and agrees with the kernel bit for bit on ``from_zz``
 input; on pixel input the tie bar of the float32 transform applies, as
@@ -38,7 +41,7 @@ from .encode2 import block_slots, fast_coefficients_plain, pack_slots
 
 BLOCK_WORDS = 52
 
-launches = 0  # times encode1() launched the CUDA kernels
+launches = 0  # times encode1() launched the CUDA kernel
 
 
 def _check(x: torch.Tensor, tables: CodecTables, nb: int,
@@ -77,7 +80,7 @@ def _lib() -> ctypes.CDLL:
         p = ctypes.c_void_p
         fn.argtypes = [
             p, ctypes.c_int, p, ctypes.c_float, p, p, p, p,
-            p, p, p, p, ctypes.c_int, ctypes.c_int, p,
+            p, p, p, ctypes.c_int, ctypes.c_int, p,
         ]
         fn.restype = ctypes.c_int
     return lib
@@ -86,7 +89,7 @@ def _lib() -> ctypes.CDLL:
 def encode1(x: torch.Tensor, tables: CodecTables, nb: int,
             from_zz: bool = False):
     """See the module docstring.  Returns ``(words, bits, overflow)``.
-    CUDA tensors go to the kernels, CPU tensors to the plain version;
+    CUDA tensors go to the kernel, CPU tensors to the plain version;
     nothing else is tried."""
     if x.device.type == "cpu":
         return encode1_plain(x, tables, nb, from_zz)
@@ -95,11 +98,12 @@ def encode1(x: torch.Tensor, tables: CodecTables, nb: int,
     global launches
     n = _check(x, tables, nb, from_zz)
     x = x.contiguous()
+    if not from_zz and x.data_ptr() % 16:
+        x = x.clone()  # the transform reads a block's pixels 16 bytes a load
     i32 = dict(dtype=torch.int32, device=x.device)
     words = torch.empty((n, BLOCK_WORDS), **i32)
     bits = torch.empty((n,), **i32)
     over = torch.zeros((1,), **i32)
-    zz_scratch = None if from_zz else torch.empty((64, n), **i32)
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.encode1_launch(
@@ -107,10 +111,10 @@ def encode1(x: torch.Tensor, tables: CodecTables, nb: int,
             tables.dc_offset, tables.dc_comb.data_ptr(),
             tables.ac_comb.data_ptr(), tables.zrl_hi.data_ptr(),
             tables.zrl_lo.data_ptr(),
-            None if from_zz else zz_scratch.data_ptr(),
             words.data_ptr(), bits.data_ptr(), over.data_ptr(), n, int(nb),
-            torch.cuda.current_stream().cuda_stream,
+            _build.stream_handle(x.device),
         )
     _build.check(err, "encode1")
     launches += 1
-    return words, bits, over[0] > 0
+    # the flag is 0 or 1: its first byte read as a bool, no launch
+    return words, bits, over.view(torch.bool)[0]

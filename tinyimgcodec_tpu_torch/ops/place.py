@@ -2,7 +2,7 @@
 
 Takes the encode kernel's outputs -- (N, 56) block rows whose words are
 already shifted to their final bit phase, and the (2, N) meta of global
-bit offsets and bit counts -- and ORs row b into one zeroed stream at word
+bit offsets and bit counts -- and ORs row b into one stream at word
 ``offset_b >> 5``.  Returns ``(stream_words (cap_words,) int32 bit
 patterns, image_start_bits (B,), total_bits, overflow)`` like the JAX
 package's ``assemble_cm``.
@@ -10,11 +10,20 @@ package's ``assemble_cm``.
 Replaces the three placement kernel generations of
 ``tinyimgcodec_tpu/ops/pallas_place.py`` (``_make_kernel_v4``,
 ``_make_kernel_v3``, ``_make_kernel``), which are one function.  On the
-card it is a scatter with ``atomicOr`` (``csrc/place.cu``); bound: bytes,
-and the kernel reads only the words a block owns.
+card it is a gather (``csrc/place.cu``): one launch whose threads follow
+the output words, each the OR of the few consecutive blocks that cover it,
+found by bisection in the offsets and stored whole -- no atomics, no zero
+fill before it, and image starts, total and overflow flag come out of the
+same launch.  Bound: bytes.
 
-Overflow is exactly ``total_bits > cap_words * 32``.  A word that would
-land at or beyond ``cap_words`` is dropped, never moved onto earlier data.
+Overflow is exactly ``total_bits > cap_words * 32`` (no 32-bit wrap of the
+limit).  A word that would land at or beyond ``cap_words`` is dropped,
+never moved onto earlier data.
+
+Precondition, which ``ops/encode2.py`` guarantees and the kernel relies
+on (the plain version only on the last): offsets ascend, a block's bits
+end before the next block begins, and a row is zero outside its block's
+bits.
 """
 
 from __future__ import annotations
@@ -47,7 +56,8 @@ def _summary(meta: torch.Tensor, nb: int, cap_words: int):
     off = meta[0]
     total_bits = off[-1] + meta[1, -1]
     starts = off[::nb]
-    overflow = total_bits > cap_words * 32
+    # total_bits is int32: a limit of 2**31 bits or more is never passed
+    overflow = total_bits > min(cap_words * 32, (1 << 31) - 1)
     return starts, total_bits, overflow
 
 
@@ -74,22 +84,27 @@ def _lib() -> ctypes.CDLL:
     fn = lib.place_launch
     if fn.argtypes is None:
         fn.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return lib
 
 
 def launch_kernel(packed: torch.Tensor, meta: torch.Tensor,
-                  stream: torch.Tensor) -> None:
-    """The ``place_kernel`` launch alone, into a zeroed ``stream``: what
-    :func:`place` does between its zero fill and its summary (a measurement
-    can time just this)."""
+                  stream: torch.Tensor, nb: int = 0,
+                  summary: torch.Tensor | None = None) -> None:
+    """The ``place_kernel`` launch alone: writes every word of ``stream``
+    and, if given, ``summary`` (B + 2,) int32 = image starts, total bits,
+    overflow.  What :func:`place` does after its allocations (a
+    measurement can time just this)."""
+    off = meta.data_ptr()  # row 0; row 1, the bit counts, follows it
     with torch.cuda.device(packed.device):
         err = _lib().place_launch(
-            packed.data_ptr(), meta[0].data_ptr(), meta[1].data_ptr(),
-            stream.data_ptr(), packed.shape[0], stream.shape[0],
-            torch.cuda.current_stream().cuda_stream,
+            packed.data_ptr(), off, off + 4 * meta.stride(0),
+            stream.data_ptr(),
+            None if summary is None else summary.data_ptr(),
+            packed.shape[0], int(nb), stream.shape[0],
+            _build.stream_handle(packed.device),
         )
     _build.check(err, "place")
 
@@ -102,13 +117,18 @@ def place(packed: torch.Tensor, meta: torch.Tensor, nb: int, cap_words: int):
     if packed.device.type != "cuda":
         raise ValueError(f"unsupported device {packed.device}")
     global launches
-    _check(packed, meta, nb)
+    n = _check(packed, meta, nb)
     cap_words = int(cap_words)
     if not 0 < cap_words < 1 << 31:
         raise ValueError(f"cap_words {cap_words} out of range")
     packed = packed.contiguous()
     meta = meta.contiguous()
-    stream = torch.zeros(cap_words, dtype=torch.int32, device=packed.device)
-    launch_kernel(packed, meta, stream)
+    nimg = n // nb
+    i32 = dict(dtype=torch.int32, device=packed.device)
+    stream = torch.empty(cap_words, **i32)
+    summary = torch.empty(nimg + 2, **i32)
+    launch_kernel(packed, meta, stream, nb, summary)
     launches += 1
-    return (stream,) + _summary(meta, nb, cap_words)
+    # the flag is 0 or 1: its first byte read as a bool, no launch
+    overflow = summary.view(torch.bool)[4 * nimg + 4]
+    return stream, summary[:nimg], summary[nimg], overflow
