@@ -8,7 +8,8 @@ Run from the root of a checkout, on a machine with an NVIDIA card:
 At the corpus shape (49 images of 512x512, quality 50) it calls the
 wrappers of the encode kernels (``encode2`` and ``encode1`` in both input
 forms, ``place`` at the pipeline's capacity and at its retry capacity,
-``stitch``, ``exact_transform``) and the ``entropy_decode`` wrapper under
+``stitch`` at both capacities, ``exact_transform``) and the
+``entropy_decode`` wrapper under
 ``torch.profiler`` and prints, for each, the device time of every kernel,
 memset and small tensor operation the wrapper launches (mean microseconds a
 call), beside the wrapper's CUDA-event median and the host time of a call
@@ -17,6 +18,11 @@ concatenated fast-mode and exact-mode corpus streams, so that two trees can
 be compared byte for byte.  It reads only the package's public functions,
 so the same script runs on an older tree of the port, for a comparison
 of two trees in one run on one card.
+
+``--only NAME[,NAME...]`` splits only the wrappers whose label holds one
+of the names (and skips the decode sweeps unless one names
+``entropy_decode``); the stream hashes are printed always.  A sweep over
+copies of the tree with a kernel's constants edited runs it that way.
 
 Output: one JSON object a line.  Exits 2 without a CUDA device.
 """
@@ -49,8 +55,14 @@ from tinyimgcodec_tpu_torch.tables import CodecTables, DecodeTables  # noqa: E40
 
 DEV = torch.device("cuda")
 CALLS = 20
+ONLY = (sys.argv[sys.argv.index("--only") + 1].split(",")
+        if "--only" in sys.argv[1:] else None)
 CHUNK_KEYS = ("chunk_start", "chunk_blocks", "chunk_block_base",
               "chunk_end_lo", "chunk_end_hi")
+
+
+def wanted(label: str) -> bool:
+    return ONLY is None or any(name in label for name in ONLY)
 
 
 def event_median_ms(fn) -> float:
@@ -86,6 +98,8 @@ def split(label: str, fn) -> None:
     the wrapper's CUDA-event median and its host time a call."""
     from torch.profiler import ProfilerActivity, profile
 
+    if not wanted(label):
+        return
     ms = event_median_ms(fn)
     host_us = host_us_per_call(fn)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -190,15 +204,18 @@ def split_assembly_and_v1(corpus, tables, blocks, zz, nb) -> None:
     split("place", lambda: place.place(packed, meta, nb, cap))
     split("place at the retry capacity",
           lambda: place.place(packed, meta, nb, n * 52))
-    buf = torch.zeros(cap, dtype=torch.int32, device=DEV)
-    print(json.dumps({"place_kernel_alone_ms": event_median_ms(
-        lambda: place.launch_kernel(packed, meta, buf))}), flush=True)
+    if wanted("place"):
+        buf = torch.zeros(cap, dtype=torch.int32, device=DEV)
+        print(json.dumps({"place_kernel_alone_ms": event_median_ms(
+            lambda: place.launch_kernel(packed, meta, buf))}), flush=True)
     split("encode1 from pixels", lambda: encode1.encode1(blocks, tables, nb))
     zz_bm = zz.T.contiguous()  # block-major (N, 64)
     split("encode1 from coefficients",
           lambda: encode1.encode1(zz_bm, tables, nb, from_zz=True))
     words, bits, _ = encode1.encode1(blocks, tables, nb)
     split("stitch", lambda: stitch.stitch(words, bits, nb, cap))
+    split("stitch at the retry capacity",
+          lambda: stitch.stitch(words, bits, nb, n * 52))
     split("exact_transform",
           lambda: exact_transform.exact_transform(blocks, tables))
 
@@ -225,7 +242,7 @@ def main() -> None:
     prep, args, dtab = decode_args(exact)
     split("entropy_decode", lambda: entropy_decode.entropy_decode_chunks(
         *args, prep["nb_total"], dtab))
-    if hasattr(entropy_decode, "launch_shape"):
+    if hasattr(entropy_decode, "launch_shape") and wanted("entropy_decode"):
         sweep_decode_shapes(args, prep, dtab)
         sweep_chunks_a_warp(exact * 4)
     print(json.dumps({

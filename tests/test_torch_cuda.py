@@ -44,6 +44,29 @@ def _blocks(imgs, dev):
     return transform.blockify(torch.from_numpy(imgs).to(dev)).reshape(-1, 64)
 
 
+def _exact_both(blocks, t, quality):
+    """The tensor-core transform against the plain version: coefficients
+    equal in every block neither flags, flags that differ in at most
+    0.01 % of the blocks (a product summed in another order moves a
+    quotient by about 1e-12, against the 1e-9 tie window), and equal to
+    the float64 oracle once the flagged blocks are recomputed.  Returns
+    the kernel's flags."""
+    zk, fk = exact_transform.exact_transform(blocks, t)
+    zp, fp = exact_transform.exact_transform_plain(blocks, t)
+    assert zk.shape == zp.shape and fk.shape == fp.shape
+    either = (fk != 0) | (fp != 0)
+    assert not bool(((zk != zp).any(dim=0) & ~either).any())
+    assert int((fk != fp).sum()) <= blocks.shape[0] // 10000
+    gold = exact_coefficients(blocks.cpu(), quality,
+                              CodecTables.build(quality, "cpu"))
+    idx = torch.nonzero(either).reshape(-1)
+    fixed = zk.clone()
+    fixed[:, idx] = gold.to(zk.device)[:, idx]
+    assert torch.equal(fixed.cpu(), gold)
+    assert torch.equal(exact_coefficients(blocks, quality, t).cpu(), gold)
+    return fk
+
+
 @pytest.mark.parametrize("quality, noise", [(50, False), (90, True), (10, False)])
 def test_kernels_equal_plain_versions(cuda, quality, noise):
     if noise:
@@ -55,9 +78,7 @@ def test_kernels_equal_plain_versions(cuda, quality, noise):
     blocks = _blocks(imgs, cuda)
     nb = blocks.shape[0] // 3
     before = (exact_transform.launches, encode2.launches, place.launches)
-    zk, fk = exact_transform.exact_transform(blocks, t)
-    zp, fp = exact_transform.exact_transform_plain(blocks, t)
-    assert torch.equal(zk, zp) and torch.equal(fk, fp)
+    _exact_both(blocks, t, quality)
     zz = exact_coefficients(blocks, quality, t)
     a = encode2.encode2(zz, t, nb, from_zz=True)
     b = encode2.encode2_plain(zz, t, nb, from_zz=True)
@@ -67,7 +88,7 @@ def test_kernels_equal_plain_versions(cuda, quality, noise):
         p = place.place_plain(a[0], a[1], nb, cap)
         assert all(torch.equal(x, y) for x, y in zip(k, p))
     after = (exact_transform.launches, encode2.launches, place.launches)
-    assert after == (before[0] + 2, before[1] + 1, before[2] + 3)
+    assert after == (before[0] + 3, before[1] + 1, before[2] + 3)
 
 
 def test_fast_transform_kernel_meets_the_tie_bar(cuda):
@@ -514,6 +535,119 @@ def test_encode1_longest_block_and_overflow_flags(cuda, n, nb):
         flagged[n - 30, col] = value
         assert bool(_encode1_both(torch.from_numpy(flagged).to(cuda), t,
                                   nb)[2])
+
+
+# ---- the shapes that steer the tensor-core transform ------------------------
+
+
+@pytest.mark.parametrize(
+    "shape, quality",
+    [((1, 8, 8), 50),          # N = 1
+     ((3, 40, 72), 90),        # N = 135: a ragged tile, 4-byte stores
+     ((1, 8, 1032), 90),       # N = 129: one block in the second tile
+     ((4, 256, 256), 90)],     # 16-byte loads and stores
+    ids=["N1", "N135", "N129", "noise-q90"],
+)
+def test_exact_transform_shapes_equal_plain_version(cuda, shape, quality):
+    imgs = np.random.RandomState(37).randint(0, 256, shape).astype(np.uint8)
+    t = CodecTables.build(quality, cuda)
+    blocks = _blocks(imgs, cuda).contiguous()
+    flags = _exact_both(blocks, t, quality)
+    # the same pixels 4 bytes past a 16-byte boundary: 4-byte loads
+    buf = torch.empty(blocks.numel() + 16, dtype=torch.uint8, device=cuda)
+    skew = (4 - buf.data_ptr()) % 16
+    shifted = buf[skew:skew + blocks.numel()].view(blocks.shape)
+    shifted.copy_(blocks)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    assert torch.equal(_exact_both(shifted, t, quality), flags)
+
+
+def test_exact_transform_leaves_noise_blocks_unflagged(cuda):
+    # dense noise at q = 90: about 2 % of the blocks hold a tie; a kernel
+    # that flags more would pass every equality above after the recompute
+    imgs = np.random.RandomState(41).randint(
+        0, 256, (4, 256, 256)).astype(np.uint8)
+    t = CodecTables.build(90, cuda)
+    blocks = _blocks(imgs, cuda)
+    flags = _exact_both(blocks, t, 90)
+    assert int((flags != 0).sum()) <= 0.05 * blocks.shape[0]
+
+
+def test_exact_transform_flags_the_exact_ties(cuda):
+    t = CodecTables.build(50, cuda)
+    blocks = torch.full((40, 64), 129, dtype=torch.uint8, device=cuda)
+    assert bool(_exact_both(blocks, t, 50).all())
+
+
+# ---- the shapes that steer stitch's gather ----------------------------------
+
+
+def _stitch_both(words, bits, nb):
+    """Kernel == plain version (stream, starts, total, status, dtypes) at
+    the pipeline's retry capacity, the exact one, one word short and ten
+    times the stream; every word of a buffer full of ones is rewritten,
+    twice.  Returns the stream at the exact capacity."""
+    n = words.shape[0]
+    total = int(stitch.stitch_plain(words, bits, nb, n * 52)[2])
+    fits = -(-total // 32)
+    before = stitch.launches
+    caps = sorted({n * 52, fits, max(fits - 1, 1), 10 * fits})
+    for cap in caps:
+        k = stitch.stitch(words, bits, nb, cap)
+        p = stitch.stitch_plain(words, bits, nb, cap)
+        assert all(torch.equal(x, y) for x, y in zip(k, p))
+        assert [(x.dtype, x.shape) for x in k] == [(y.dtype, y.shape)
+                                                   for y in p]
+        assert int(k[3]) == (2 if cap < fits else 0)
+        buf = torch.full((cap,), -1, dtype=torch.int32, device=words.device)
+        for _ in range(2):
+            summary = stitch.launch_kernels(words, bits, nb, buf)
+            assert torch.equal(buf, p[0])
+            assert int(summary[-2]) == total
+    assert stitch.launches == before + len(caps)
+    return stitch.stitch(words, bits, nb, fits)[0]
+
+
+@pytest.mark.parametrize(
+    "shape, quality",
+    [((4096, 8, 8), 75),      # nb = 1: every block starts an image
+     ((3, 40, 72), 90),       # N = 135: one ragged span
+     ((3, 136, 152), 90),     # N = 969: image starts inside spans
+     ((1, 1024, 2048), 90)],  # one image, 128 spans in one chain
+    ids=["one-block-images", "N135", "nb323", "one-image"],
+)
+def test_stitch_shapes_equal_plain_version(cuda, shape, quality):
+    imgs = np.random.RandomState(41).randint(0, 256, shape).astype(np.uint8)
+    t = CodecTables.build(quality, cuda)
+    blocks = _blocks(imgs, cuda).contiguous()
+    nb = blocks.shape[0] // shape[0]
+    words, bits, _ = encode1.encode1(blocks, t, nb)
+    v1 = _stitch_both(words, bits, nb)
+    # the v1 stream is the v2 stream
+    packed, meta, _ = encode2.encode2(blocks, t, nb)
+    assert torch.equal(place.place(packed, meta, nb, v1.shape[0])[0], v1)
+
+
+@pytest.mark.parametrize(
+    "image_bits",
+    [[[6] * 600] * 3,                            # six blocks a word
+     [[2] * 700] * 2,                            # sixteen a word
+     [[1662, 6, 27, 1664, 6, 6, 6, 9]] * 2,      # full rows, phases 0 and 31
+     [[6, 6, 5, 2], [6, 3, 7, 1], [2, 2, 2, 3]],  # pads share words
+     [[b] for b in range(2, 300)],               # nb = 1
+     [[13]]],                                    # one block
+    ids=["six-a-word", "sixteen-a-word", "longest-block", "pads", "nb1",
+         "one-block"],
+)
+def test_stitch_handmade_rows_equal_plain_version(cuda, image_bits):
+    words, meta, nb, bits = blocks_of_random_bits(image_bits, 7,
+                                                  from_bit0=True)
+    got = _stitch_both(torch.from_numpy(words.view(np.int32)).to(cuda),
+                       torch.from_numpy(meta[1]).to(cuda), nb)
+    padded = np.zeros(got.shape[0] * 32, np.uint8)
+    padded[:len(bits)] = bits
+    want = np.packbits(padded).view(">u4").astype(np.uint32)
+    assert np.array_equal(got.cpu().numpy().view(np.uint32), want)
 
 
 def test_stream_handle_is_the_current_stream(cuda):

@@ -1,6 +1,11 @@
-"""Exact transform: the port's plain version (the CUDA kernel's twin, bit
-for bit) vs the JAX package's double-float Pallas kernel in interpret
-mode, and vs the float64 oracle."""
+"""Exact transform: the port's plain version vs the JAX package's
+double-float Pallas kernel in interpret mode, and vs the float64 oracle;
+and the CUDA kernel's tensor-core arithmetic (``csrc/exact_transform.cu``)
+modelled lane by lane in numpy (:func:`dmma_model`), held against the
+plain version."""
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -98,3 +103,157 @@ def test_wrapper_rejects_wrong_input(case):
     with pytest.raises(ValueError):
         tex.exact_transform(torch.zeros((4, 63), dtype=torch.uint8),
                             case["tables"])
+
+
+# ---- the CUDA kernel's tensor-core arithmetic, lane by lane, in numpy -----
+
+LANE = np.arange(32)
+G, Q = LANE >> 2, LANE & 3  # the lane's group and its place in the group
+TWO52 = 2.0 ** 52
+RINT_MAGIC = 1.5 * 2.0 ** 52
+
+
+def _kernel_source() -> str:
+    return (Path(tex.__file__).resolve().parent.parent / "csrc"
+            / "exact_transform.cu").read_text()
+
+
+def _zz_slot() -> np.ndarray:
+    """The kernel's ZZ_SLOT table, read from its source."""
+    body = re.search(r"ZZ_SLOT\[64\] = \{([^}]*)\}", _kernel_source()).group(1)
+    return np.array([int(v) for v in body.replace("\n", " ").split(",")])
+
+
+def mma_m8n8k4(a, b, c):
+    """``mma.sync.aligned.m8n8k4.row.col.f64``: per lane l = 4 g + q,
+    ``a`` holds A[g][q], ``b`` B[q][g], ``c`` (..., 32, 2) C[g][2q + i];
+    returns D = A B + C in C's layout.  Leading axes: blocks."""
+    lead = np.broadcast_shapes(np.shape(a), np.shape(b), np.shape(c)[:-1])[:-1]
+    A = np.zeros(lead + (8, 4))
+    B = np.zeros(lead + (4, 8))
+    C = np.zeros(lead + (8, 8))
+    A[..., G, Q] = a
+    B[..., Q, G] = b
+    C[..., G, 2 * Q] = np.broadcast_to(c, lead + (32, 2))[..., 0]
+    C[..., G, 2 * Q + 1] = np.broadcast_to(c, lead + (32, 2))[..., 1]
+    D = A @ B + C
+    return np.stack([D[..., G, 2 * Q], D[..., G, 2 * Q + 1]], axis=-1)
+
+
+def mma_m16n8k8(a, b):
+    """``mma.sync.aligned.m16n8k8.row.col.f64``: per lane l = 4 g + q, ``a``
+    (..., 32, 4) holds A[g][q], A[g + 8][q], A[g][q + 4], A[g + 8][q + 4],
+    ``b`` (..., 32, 2) B[q][g], B[q + 4][g]; returns D = A B (..., 32, 4):
+    D[g][2q], D[g][2q + 1], D[g + 8][2q], D[g + 8][2q + 1]."""
+    lead = np.broadcast_shapes(np.shape(a)[:-1], np.shape(b)[:-1])[:-1]
+    a = np.broadcast_to(a, lead + (32, 4))
+    b = np.broadcast_to(b, lead + (32, 2))
+    A = np.zeros(lead + (16, 8))
+    B = np.zeros(lead + (8, 8))
+    A[..., G, Q], A[..., G + 8, Q] = a[..., 0], a[..., 1]
+    A[..., G, Q + 4], A[..., G + 8, Q + 4] = a[..., 2], a[..., 3]
+    B[..., Q, G], B[..., Q + 4, G] = b[..., 0], b[..., 1]
+    D = A @ B
+    return np.stack([D[..., G, 2 * Q], D[..., G, 2 * Q + 1],
+                     D[..., G + 8, 2 * Q], D[..., G + 8, 2 * Q + 1]], axis=-1)
+
+
+def shifted_pixel(byte):
+    """byte - 128 as the kernel makes it: the bit pattern of 2**52 + byte,
+    then one subtraction."""
+    bits = (np.uint64(0x43300000) << np.uint64(32)) | byte.astype(np.uint64)
+    return bits.view(np.float64) - (TWO52 + 128.0)
+
+
+def rint_and_int32(q):
+    """round half to even and the int32 result, by adding 1.5 * 2**52: the
+    rounded value, and the low 32 bits of the sum's bit pattern."""
+    t = q + RINT_MAGIC
+    low = (t.view(np.uint64) & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    return t - RINT_MAGIC, low.view(np.int32)
+
+
+def dmma_model(blocks: np.ndarray, tables):
+    """What ``exact_transform_kernel`` computes for (N, 64) uint8 blocks,
+    from the per-lane pieces of its two 8x8x4 products a block (stage 1)
+    and its 16x8x8 product for two blocks (stage 2): returns the quantized
+    coefficients before rounding (N, 8, 8), the (64, N) int32 zig-zag
+    output and the (N,) flags."""
+    d = tables.dct_basis.numpy()
+    r = tables.recip_divisors.numpy()
+    x = blocks.reshape(-1, 8, 8)
+    n = x.shape[0]
+    zero = np.zeros((n, 32, 2))
+    # stage 1, Y = D X: A = D[g][q + 4s], B = X[q + 4s][g]
+    y = mma_m8n8k4(d[G, Q], shifted_pixel(x[:, Q, G]), zero)
+    y = mma_m8n8k4(d[G, Q + 4], shifted_pixel(x[:, Q + 4, G]), y)
+    # stage 2, C = Y D^T over j = 2k + s, blocks 2i and 2i + 1 in one
+    # 16x8x8 product: A = Y[g][2q + s] of each as the lane holds it,
+    # B = D[g][2q + s]
+    if n % 2:
+        y = np.concatenate([y, y[-1:]])
+    pair = y.reshape(-1, 2, 32, 2)
+    a = np.stack([pair[:, 0, :, 0], pair[:, 1, :, 0],
+                  pair[:, 0, :, 1], pair[:, 1, :, 1]], axis=-1)
+    dd = mma_m16n8k8(a, np.stack([d[G, 2 * Q], d[G, 2 * Q + 1]], axis=-1))
+    c = np.stack([dd[..., :2], dd[..., 2:]], axis=1).reshape(-1, 32, 2)[:n]
+    q = np.empty((n, 8, 8))
+    q[:, G, 2 * Q] = c[..., 0] * r[G, 2 * Q]
+    q[:, G, 2 * Q + 1] = c[..., 1] * r[G, 2 * Q + 1]
+    v, ints = rint_and_int32(q)
+    flags = (np.abs(np.abs(q - v) - 0.5) < tex.TIE_SNAP).reshape(n, 64).any(1)
+    zz = np.empty((64, n), np.int32)
+    zz[_zz_slot()] = ints.reshape(n, 64).T
+    return q, zz, flags.astype(np.int32)
+
+
+def _reference_q(blocks: np.ndarray, tables) -> np.ndarray:
+    d = tables.dct_basis.numpy()
+    x = blocks.reshape(-1, 8, 8).astype(np.float64) - 128.0
+    return d @ x @ d.T * tables.recip_divisors.numpy()
+
+
+def _dense_blocks(seed, count=512):
+    return np.random.RandomState(seed).randint(0, 256, (count, 64)).astype(
+        np.uint8)
+
+
+def test_zz_slot_is_the_inverse_zigzag():
+    slot = _zz_slot()
+    assert np.array_equal(slot[ZIGZAG_ORDER], np.arange(64))
+
+
+def test_exponent_tricks_equal_the_conversions():
+    byte = np.arange(256)
+    assert np.array_equal(shifted_pixel(byte), byte - 128.0)
+    rng = np.random.RandomState(3)
+    q = np.concatenate([rng.uniform(-3000, 3000, 20000),
+                        np.arange(-2048, 2048) + 0.5,  # exact ties
+                        np.nextafter(np.arange(-50, 50) + 0.5, 0),
+                        np.array([0.0, -0.0, 0.5, -0.5, 1.5, -1.5, 2.5])])
+    v, ints = rint_and_int32(q)
+    assert np.array_equal(v, np.rint(q))  # half to even
+    assert np.array_equal(ints, np.rint(q).astype(np.int32))
+
+
+@pytest.mark.parametrize("content, quality", [
+    ("case", QUALITY), ("noise", 90), ("noise", 50), ("noise", 10),
+    ("odd", 50)])
+def test_fragment_model_equals_the_plain_version(case, content, quality):
+    """The lane layout of the four DMMAs computes D X D^T: within 1e-12 of
+    the float64 product, and the plain version's coefficients after
+    rounding in every block that neither side flags."""
+    blocks = {"case": case["blocks"],
+              "odd": _dense_blocks(5, 333)}.get(content)
+    if blocks is None:
+        blocks = _dense_blocks(quality)
+    tables = (case["tables"] if quality == QUALITY
+              else CodecTables.build(quality, "cpu"))
+    q, zz, flags = dmma_model(blocks, tables)
+    assert np.abs(q - _reference_q(blocks, tables)).max() < 1e-12
+    zz_p, fl_p = tex.exact_transform_plain(torch.from_numpy(blocks), tables)
+    keep = (flags == 0) & (fl_p.numpy() == 0)
+    assert keep.sum() > 0.9 * len(blocks)
+    assert np.array_equal(zz[:, keep], zz_p.numpy()[:, keep])
+    if content == "case":  # the exact DC ties are flagged
+        assert flags[-N_TIE:].all()

@@ -28,7 +28,7 @@ def synthetic_corpus(n: int = 49, size: int = 512) -> np.ndarray:
     return out
 
 
-def blocks_of_random_bits(image_bits, seed: int = 0):
+def blocks_of_random_bits(image_bits, seed: int = 0, from_bit0: bool = False):
     """Encoded blocks of the given bit lengths, filled with random bits.
 
     ``image_bits``: one list of block lengths (at most 1664 bits each) an
@@ -37,7 +37,9 @@ def blocks_of_random_bits(image_bits, seed: int = 0):
     uint32 rows shifted to their block's bit phase and zero outside its
     bits, ``meta`` (2, N) int32 global bit offsets (every image's start
     rounded up to a byte) and bit counts, and the whole stream as one
-    array of bits, built independently of the rows."""
+    array of bits, built independently of the rows.  ``from_bit0``: the
+    v1 encode kernel's layout instead, (N, 52) rows packed from bit 0 (the
+    same bits for the same seed)."""
     rng = np.random.RandomState(seed)
     nb = len(image_bits[0])
     offs, lens, pos = [], [], 0
@@ -50,10 +52,11 @@ def blocks_of_random_bits(image_bits, seed: int = 0):
             lens.append(ln)
             pos += ln
     stream_bits = np.zeros(pos, np.uint8)
-    rows = np.zeros((len(offs), 56 * 32), np.uint8)
+    rows = np.zeros((len(offs), (52 if from_bit0 else 56) * 32), np.uint8)
     for b, (o, ln) in enumerate(zip(offs, lens)):
         chunk = rng.randint(0, 2, ln).astype(np.uint8)
         stream_bits[o:o + ln] = chunk
-        rows[b, (o & 31):(o & 31) + ln] = chunk
+        phase = 0 if from_bit0 else o & 31
+        rows[b, phase:phase + ln] = chunk
     packed = np.packbits(rows, axis=1).view(">u4").astype(np.uint32)
     return packed, np.array([offs, lens], np.int32), nb, stream_bits

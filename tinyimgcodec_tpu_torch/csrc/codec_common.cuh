@@ -1,7 +1,8 @@
 // Device code shared by the encode kernels (encode2.cu, encode1.cu) and
 // the stream assembly (stitch.cu): the Huffman symbol tables in shared
 // memory, the per-block symbolizer and its bit sink, the float32 fast
-// transform, and the per-image offset scans of stitch.cu.
+// transform, and the single-pass scan of the running stream offset that
+// encode2.cu and stitch.cu run across their CTAs.
 //
 // Both encode paths include the *same* transform and the *same*
 // symbolizer from here, so their fast-mode bytes are equal by
@@ -26,7 +27,6 @@
 namespace {
 
 constexpr int ENC_THREADS = 128;
-constexpr int SCAN_THREADS = 1024;
 constexpr int ZRL_INDEX = 15 * 11;  // AC table entry of (run 15, size 0)
 
 struct Tables {
@@ -220,61 +220,95 @@ fast_transform_kernel(const uint8_t* __restrict__ pix,
     });
 }
 
-// ---- exclusive scan of per-block bit counts inside each image (stitch.cu;
-// encode2.cu scans across its tiles in one pass of its own) ---------------
-// One CTA per image walks its nb counts in chunks of SCAN_THREADS with a
-// running carry: warp shuffles inside a warp, shared memory across warps.
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_images_kernel(const int* __restrict__ bits, int* __restrict__ local_off,
-                   int* __restrict__ img_bits, int nb) {
-    __shared__ int warp_sums[32];
-    const int img = blockIdx.x;
-    const int* src = bits + (size_t)img * nb;
-    int* dst = local_off + (size_t)img * nb;
-    const int lane = threadIdx.x & 31;
-    const int wid = threadIdx.x >> 5;
-    int carry = 0;
-    for (int base = 0; base < nb; base += SCAN_THREADS) {
-        const int i = base + threadIdx.x;
-        const int v = (i < nb) ? src[i] : 0;
-        int x = v;
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-            const int y = __shfl_up_sync(0xFFFFFFFFu, x, d);
-            if (lane >= d) x += y;
-        }
-        if (lane == 31) warp_sums[wid] = x;
-        __syncthreads();
-        if (wid == 0) {
-            int s = warp_sums[lane];
-#pragma unroll
-            for (int d = 1; d < 32; d <<= 1) {
-                const int y = __shfl_up_sync(0xFFFFFFFFu, s, d);
-                if (lane >= d) s += y;
-            }
-            warp_sums[lane] = s;
-        }
-        __syncthreads();
-        const int before = (wid > 0) ? warp_sums[wid - 1] : 0;
-        if (i < nb) dst[i] = carry + before + x - v;
-        carry += warp_sums[31];
-        __syncthreads();
+// ---- the running stream offset across CTAs (encode2.cu, stitch.cu) -----
+// A single-pass scan: every CTA publishes one 64-bit state word -- first
+// what its run of blocks does to the running offset, then, once known, the
+// offset at its end -- and looks back over its predecessors' words, 32 at a
+// time with a warp, until it meets one that already knows its end.  CTAs
+// take their index from an atomic ticket, so a CTA only ever waits for CTAs
+// that already run; the word carries state and value together, so one
+// store publishes both; the words are zeroed by the caller before every
+// launch.  The sums are integers: the result does not depend on who
+// resolves first.
+//
+// Image starts are rounded up to a byte, so what a run of blocks does to a
+// running offset s is s + a1 or, when it holds an image start,
+// align8(s + a1) + a2; that family is closed under composition (Run,
+// then).  A state word: bits 0..31 a2 if the run holds an image start,
+// else a1 (ST_SUM), or the offset at the run's end (ST_END); bit 32 the
+// run holds an image start; bits 33..61 a1 of a run that holds one;
+// bits 62..63 the status.
+constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr unsigned long long ST_SUM = 1ull << 62;  // value = the run's Run
+constexpr unsigned long long ST_END = 2ull << 62;  // value = offset at end
+constexpr unsigned long long ST_START = 1ull << 32;
+constexpr unsigned long long A1_MASK = (1ull << 29) - 1;
+
+__device__ __forceinline__ int align8(int s) { return (s + 7) & ~7; }
+
+// What a run of blocks does to the running offset s:
+// has ? align8(s + a1) + a2 : s + a1.
+struct Run {
+    int has, a1, a2;
+    __device__ __forceinline__ int apply(int s) const {
+        return has ? align8(s + a1) + a2 : s + a1;
     }
-    if (threadIdx.x == 0) img_bits[img] = carry;
+};
+
+// `older` first, then `newer`.  align8(x + y) = x + align8(y) for x a
+// multiple of 8 keeps the family closed.
+__device__ __forceinline__ Run then(const Run& older, const Run& newer) {
+    if (!newer.has) {
+        return older.has ? Run{1, older.a1, older.a2 + newer.a1}
+                         : Run{0, older.a1 + newer.a1, 0};
+    }
+    return older.has ? Run{1, older.a1, align8(older.a2 + newer.a1) + newer.a2}
+                     : Run{1, older.a1 + newer.a1, newer.a2};
 }
 
-// ---- image starts, byte-aligned, serially over the B images -------------
-// starts[i] for i < B; starts[B] = total stream bits (last image unpadded).
-__global__ void image_starts_kernel(const int* __restrict__ img_bits,
-                                    int* __restrict__ starts, int nimg) {
-    if (blockIdx.x != 0 || threadIdx.x != 0) return;
-    int s = 0;
-    for (int i = 0; i < nimg; ++i) {
-        starts[i] = s;
-        s += img_bits[i];
-        if (i + 1 < nimg) s = (s + 7) & ~7;
+// The ST_SUM word of a run (a1 < 2**29 when it holds an image start).
+__device__ __forceinline__ unsigned long long sum_state(const Run& r) {
+    return r.has ? ST_SUM | ST_START | ((unsigned long long)r.a1 << 33) |
+                       (uint32_t)r.a2
+                 : ST_SUM | (uint32_t)r.a1;
+}
+
+// The stream offset at the end of CTA g - 1, by warp 0 (all 32 lanes).
+__device__ __forceinline__ int look_back(
+    const volatile unsigned long long* states, int g, int lane) {
+    Run acc{0, 0, 0};  // the CTAs between the window and CTA g
+    for (int j0 = g - 1;; j0 -= 32) {
+        const int j = j0 - lane;  // lane 0 holds the nearest CTA
+        // before CTA 0 the stream is at offset 0
+        unsigned long long s = ST_END;
+        if (j >= 0) {
+            do {
+                s = states[j];
+            } while ((s >> 62) == 0);
+        }
+        const unsigned ends = __ballot_sync(FULL, (s >> 62) == 2);
+        const int k = ends ? __ffs(ends) - 1 : 32;  // nearest known end
+        const int a = (int)(uint32_t)s;
+        Run f{0, 0, 0};
+        if (lane < k)
+            f = (s & ST_START) ? Run{1, (int)((s >> 33) & A1_MASK), a}
+                               : Run{0, a, 0};
+        // lanes [lane, lane + 2d) in order: the higher lanes are older
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+            Run o;
+            o.has = __shfl_down_sync(FULL, f.has, d);
+            o.a1 = __shfl_down_sync(FULL, f.a1, d);
+            o.a2 = __shfl_down_sync(FULL, f.a2, d);
+            if (lane + d < 32) f = then(o, f);
+        }
+        Run w;
+        w.has = __shfl_sync(FULL, f.has, 0);
+        w.a1 = __shfl_sync(FULL, f.a1, 0);
+        w.a2 = __shfl_sync(FULL, f.a2, 0);
+        acc = then(w, acc);
+        if (k < 32) return acc.apply(__shfl_sync(FULL, a, k));
     }
-    starts[nimg] = s;
 }
 
 }  // namespace

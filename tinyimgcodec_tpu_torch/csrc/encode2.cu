@@ -64,7 +64,8 @@
 // threads, three CTAs an SM.
 //
 // The tables, the symbolizer and the float32 fast transform live in
-// codec_common.cuh, shared with encode1.cu.
+// codec_common.cuh, shared with encode1.cu; so do the scan's state words
+// and look_back, shared with stitch.cu.
 
 #include <cuda_pipeline.h>
 
@@ -77,71 +78,6 @@ constexpr int ROW_PAD = 57;
 constexpr int TILE = ENC_THREADS;
 constexpr int ROWS_WORDS = TILE * ROW_PAD;  // >= 64 * 64: holds the matrix
 constexpr size_t SHARED_BYTES = 4 * (64 * TILE + ROWS_WORDS);
-constexpr unsigned FULL = 0xFFFFFFFFu;
-
-// ---- the scan's state words --------------------------------------------
-// bits 0..31 value, bit 32 "the tile starts an image", bits 62..63 status.
-constexpr unsigned long long ST_SUM = 1ull << 62;  // value = own bit sum
-constexpr unsigned long long ST_END = 2ull << 62;  // value = offset at end
-constexpr unsigned long long ST_START = 1ull << 32;
-
-__device__ __forceinline__ int align8(int s) { return (s + 7) & ~7; }
-
-// What a run of tiles does to the running offset s:
-// has ? align8(s + a1) + a2 : s + a1.
-struct Run {
-    int has, a1, a2;
-    __device__ __forceinline__ int apply(int s) const {
-        return has ? align8(s + a1) + a2 : s + a1;
-    }
-};
-
-// `older` first, then `newer`.  align8(x + y) = x + align8(y) for x a
-// multiple of 8 keeps the family closed.
-__device__ __forceinline__ Run then(const Run& older, const Run& newer) {
-    if (!newer.has) {
-        return older.has ? Run{1, older.a1, older.a2 + newer.a1}
-                         : Run{0, older.a1 + newer.a1, 0};
-    }
-    return older.has ? Run{1, older.a1, align8(older.a2 + newer.a1) + newer.a2}
-                     : Run{1, older.a1 + newer.a1, newer.a2};
-}
-
-// The stream offset at the end of tile g - 1, by warp 0 (all 32 lanes).
-__device__ __forceinline__ int look_back(
-    const volatile unsigned long long* states, int g, int lane) {
-    Run acc{0, 0, 0};  // the tiles between the window and tile g
-    for (int j0 = g - 1;; j0 -= 32) {
-        const int j = j0 - lane;  // lane 0 holds the nearest tile
-        // before tile 0 the stream is at offset 0
-        unsigned long long s = ST_END;
-        if (j >= 0) {
-            do {
-                s = states[j];
-            } while ((s >> 62) == 0);
-        }
-        const unsigned ends = __ballot_sync(FULL, (s >> 62) == 2);
-        const int k = ends ? __ffs(ends) - 1 : 32;  // nearest known end
-        const int a = (int)(uint32_t)s;
-        Run f{0, 0, 0};
-        if (lane < k) f = (s & ST_START) ? Run{1, 0, a} : Run{0, a, 0};
-        // lanes [lane, lane + 2d) in order: the higher lanes are older
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-            Run o;
-            o.has = __shfl_down_sync(FULL, f.has, d);
-            o.a1 = __shfl_down_sync(FULL, f.a1, d);
-            o.a2 = __shfl_down_sync(FULL, f.a2, d);
-            if (lane + d < 32) f = then(o, f);
-        }
-        Run w;
-        w.has = __shfl_sync(FULL, f.has, 0);
-        w.a1 = __shfl_sync(FULL, f.a1, 0);
-        w.a2 = __shfl_sync(FULL, f.a2, 0);
-        acc = then(w, acc);
-        if (k < 32) return acc.apply(__shfl_sync(FULL, a, k));
-    }
-}
 
 template <bool FromZZ>
 __global__ void __launch_bounds__(ENC_THREADS)

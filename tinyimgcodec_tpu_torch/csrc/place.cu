@@ -12,21 +12,15 @@
 //
 // Bound: bytes (the words the blocks own and the meta in, the stream out).
 // Design, one launch:
-//   - threads follow the output.  A CTA takes a span of SPAN consecutive
-//     blocks, stages their offsets and ends in shared memory, and owns the
-//     words whose first bit lies at or after its first block's offset and
-//     before the next span's (span 0 from word 0, the last span up to the
-//     stream's last word): every word has one owner, which stores it whole,
-//     so there are no atomics and the stream needs no zero fill first;
-//   - a thread finds the first block whose end lies past its word's first
-//     bit by bisection in the staged ends, and walks on while the next
-//     block begins inside the word, ORing row word (word - (offset >> 5))
-//     of each; blocks past the span's end (a word shared with the next
-//     span) are read from device memory.  How many blocks meet in a word
-//     is not built in: 6 with the standard tables, more with shorter codes;
-//   - words no block covers (the pad bits before an image start) come out
-//     zero, and the words from the stream's end to `cap` are stored as zero
-//     by all CTAs together, 16 bytes a store;
+//   - the gather of gather.cuh: a CTA stages the offsets and ends of SPAN
+//     consecutive blocks and stores every word it owns whole; a block's
+//     word in the stream is its row word (word - (offset >> 5)), already
+//     shifted to its bit phase, and blocks past the span's end (a word
+//     shared with the next span) have their offsets read from device
+//     memory.  6 blocks meet in a word with the standard tables, more with
+//     shorter codes;
+//   - the words from the stream's end to `cap` are stored as zero by all
+//     CTAs together, 16 bytes a store;
 //   - image starts, total bits and the overflow flag are written by the
 //     same launch into one small tensor.
 // A word at or beyond `cap` is never stored; the caller learns of it from
@@ -35,8 +29,7 @@
 // Precondition (what encode2 produces): offsets ascend, a block's bits end
 // before the next block begins, and a row is zero outside its block's bits.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gather.cuh"
 
 namespace {
 
@@ -44,22 +37,21 @@ constexpr int ROW_WORDS = 56;
 constexpr int THREADS = 256;
 constexpr int SPAN = 256;  // blocks a CTA stages
 
-// stream[lo, hi) = 0 by the whole grid: 16-byte stores between 4-byte edges
-__device__ __forceinline__ void zero_words(uint32_t* stream, uint32_t lo,
-                                           uint32_t hi) {
-    const uint32_t step = gridDim.x * THREADS;
-    const uint32_t gid = blockIdx.x * THREADS + threadIdx.x;
-    uint32_t a = lo, b = lo;  // quads cover [a, b)
-    if (reinterpret_cast<uintptr_t>(stream) % 16 == 0 && hi - lo >= 8) {
-        a = (lo + 3u) & ~3u;
-        b = hi & ~3u;
-        uint4* q = reinterpret_cast<uint4*>(stream);
-        for (uint32_t i = (a >> 2) + gid; i < (b >> 2); i += step)
-            q[i] = make_uint4(0u, 0u, 0u, 0u);
+// The blocks of one span, as gather_span asks for them.
+struct PlacedBlocks {
+    const uint32_t* __restrict__ packed;
+    const int* __restrict__ off;
+    const uint32_t* s_off;
+    int b0, live;
+    __device__ __forceinline__ uint32_t offset(int i) const {
+        return i <= live ? s_off[i] : (uint32_t)off[b0 + i];
     }
-    for (uint32_t i = lo + gid; i < a; i += step) stream[i] = 0u;
-    for (uint32_t i = b + gid; i < hi; i += step) stream[i] = 0u;
-}
+    __device__ __forceinline__ uint32_t word(int i, uint32_t o,
+                                             uint32_t t) const {
+        const uint32_t j = t - (o >> 5);  // rows come pre-shifted
+        return j < ROW_WORDS ? packed[(size_t)(b0 + i) * ROW_WORDS + j] : 0u;
+    }
+};
 
 __global__ void __launch_bounds__(THREADS)
 place_kernel(const uint32_t* __restrict__ packed, const int* __restrict__ off,
@@ -81,29 +73,15 @@ place_kernel(const uint32_t* __restrict__ packed, const int* __restrict__ off,
     __syncthreads();
 
     // ---- the span's words: one owner each, stored whole -----------------
-    const uint32_t first = blockIdx.x == 0 ? 0u : (s_off[0] + 31u) >> 5;
-    const uint32_t last = min((s_off[live] + 31u) >> 5, cap);
-    for (uint32_t t = first + tid; t < last; t += THREADS) {
-        const uint32_t lo = t << 5;  // the word's first bit
-        int l = 0, r = live;  // least i with s_end[i] > lo, or live
-        while (l < r) {
-            const int m = (l + r) >> 1;
-            if (s_end[m] > lo) r = m; else l = m + 1;
-        }
-        uint32_t acc = 0u;
-        for (int b = b0 + l; b < n; ++b) {
-            const int i = b - b0;
-            const uint32_t o = i <= live ? s_off[i] : (uint32_t)off[b];
-            if (o >= lo + 32u) break;  // begins after the word
-            const uint32_t j = t - (o >> 5);
-            if (j < ROW_WORDS) acc |= packed[(size_t)b * ROW_WORDS + j];
-        }
-        stream[t] = acc;
-    }
+    gather_span<THREADS>(stream, s_off, s_end, live, n - b0,
+                         blockIdx.x == 0, cap,
+                         PlacedBlocks{packed, off, s_off, b0, live});
 
     // ---- from the stream's end to the capacity: zeros --------------------
     const uint32_t used = min((total + 31u) >> 5, cap);
-    if (used < cap) zero_words(stream, used, cap);
+    if (used < cap)
+        zero_words(stream, used, cap, blockIdx.x * THREADS + tid,
+                   gridDim.x * THREADS);
 
     // ---- image starts, total bits, overflow ------------------------------
     if (summary != nullptr) {

@@ -267,7 +267,7 @@ def fast_coefficients(pixels: torch.Tensor,
         err = lib.fast_transform_launch(
             pixels.data_ptr(), tables.encode_matrix.data_ptr(),
             tables.dc_offset, zz.data_ptr(), n,
-            torch.cuda.current_stream().cuda_stream,
+            _build.stream_handle(pixels.device),
         )
     _build.check(err, "encode2 fast transform")
     transform_launches += 1
@@ -301,7 +301,7 @@ def encode2(x: torch.Tensor, tables: CodecTables, nb: int,
             tables.ac_comb.data_ptr(), tables.zrl_hi.data_ptr(),
             tables.zrl_lo.data_ptr(), scan.data_ptr(),
             packed.data_ptr(), meta.data_ptr(), n, int(nb),
-            torch.cuda.current_stream().cuda_stream,
+            _build.stream_handle(dev),
         )
     _build.check(err, "encode2")
     launches += 1

@@ -429,7 +429,7 @@ def launch_kernel(words: torch.Tensor, arrays, tables: DecodeTables,
             tables.huffman.data_ptr(), tables.lookup.data_ptr(), bits,
             zz.data_ptr(), ok.data_ptr(), ok.shape[0], zz.shape[0],
             cpw, warps, stage,
-            torch.cuda.current_stream().cuda_stream,
+            _build.stream_handle(words.device),
         )
     _build.check(err, "entropy_decode")
 

@@ -8,16 +8,18 @@ when any coefficient's rounding lies within 1e-9 of a tie.
 Replaces ``tinyimgcodec_tpu/ops/pallas_exact.py`` (``_make_kernel``, used
 by ``exact_transform_pallas_cm`` and ``exact_transform_pallas_u32``).  The
 TPU kernel emulates wide arithmetic with float32 pairs; the card computes
-the same function in ``double`` (``csrc/exact_transform.cu``).  The two
-may flag different blocks -- their rounding errors differ -- which is
-allowed: the caller recomputes every flagged block with the float64 host
-oracle, and an unflagged coefficient is more than 1e-9 from a tie while
-the arithmetic error is around 1e-13.
+the same function in ``double`` (``csrc/exact_transform.cu``), its two 8x8
+products on the FP64 tensor cores.  The kernel, the plain version below
+and the TPU kernel round differently, so they may flag different blocks
+and differ in a flagged block's coefficients -- which is allowed: the
+caller recomputes every flagged block with the float64 host oracle, and an
+unflagged coefficient is more than 1e-9 from a tie while the arithmetic
+error is around 1e-13.
 
 Bound on the card: bytes (64 B in, 260 B out per block).  The plain
-version below repeats the kernel's arithmetic operation for operation, so
-the two agree bit for bit; it serves CPU tensors and is the yardstick of
-the kernel's correctness, not of its speed.
+version sums in a fixed order (a rounding after every multiply and every
+add); it serves CPU tensors and is the yardstick of the kernel's
+correctness, not of its speed.
 """
 
 from __future__ import annotations
@@ -92,7 +94,7 @@ def exact_transform(
         err = lib.exact_transform_launch(
             pixels.data_ptr(), tables.dct_basis.data_ptr(),
             tables.recip_divisors.data_ptr(), zz.data_ptr(),
-            flags.data_ptr(), n, torch.cuda.current_stream().cuda_stream,
+            flags.data_ptr(), n, _build.stream_handle(pixels.device),
         )
     _build.check(err, "exact_transform")
     launches += 1

@@ -12,9 +12,16 @@ word that would land at or beyond ``cap_words`` is dropped, never moved
 onto earlier data.
 
 Replaces ``tinyimgcodec_tpu/ops/pallas_stitch.py``
-(``_make_kernel_windowed``), a serial bit appender.  On the card it is two
-scan launches and a funnel-shift scatter with ``atomicOr``
-(``csrc/stitch.cu``); bound: bytes.  It does not go through ``place``.
+(``_make_kernel_windowed``), a serial bit appender.  On the card it is one
+launch after a zero fill of its scan state (``csrc/stitch.cu``): spans of
+blocks find their offsets by a single-pass look-back scan, and every word
+of the stream is gathered from the funnel-shifted rows of the blocks that
+cover it and stored whole -- no atomics on the stream, no zero fill of it
+-- with the tail zeros, image starts, total and status from the same
+launch.  Bound: bytes.  It does not go through ``place``.
+
+Precondition: ``0 <= bits <= 1664`` (a row holds 52 words) and a row is
+zero past its block's bits, as ``ops/encode1.py`` gives them.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from . import _build
 from .encode2 import image_offsets
 
 BLOCK_WORDS = 52
+SPAN = 256  # blocks a CTA of the kernel takes (csrc/stitch.cu)
 _M32 = 0xFFFFFFFF
 
 launches = 0  # times the CUDA kernels were launched through the wrapper
@@ -84,7 +92,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.stitch_launch
     if fn.argtypes is None:
         fn.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return lib
@@ -92,28 +100,28 @@ def _lib() -> ctypes.CDLL:
 
 def launch_kernels(words: torch.Tensor, bits: torch.Tensor, nb: int,
                    stream: torch.Tensor) -> torch.Tensor:
-    """The three launches alone (scan, image starts, scatter) into a
-    zeroed ``stream``; returns ``starts`` (B + 1,): the image starts, then
-    the total bits.  What :func:`stitch` does after its zero fill (a
-    measurement can time just this)."""
+    """The zero fill of the scan state and the kernel launch, writing
+    every word of ``stream`` whatever it held; returns the summary
+    (B + 2,) int32 = image starts, total bits, status.  What
+    :func:`stitch` does after allocating the stream (a measurement can
+    time just this)."""
     n = words.shape[0]
-    i32 = dict(dtype=torch.int32, device=words.device)
-    local_off = torch.empty((n,), **i32)
-    img_bits = torch.empty((n // nb,), **i32)
-    starts = torch.empty((n // nb + 1,), **i32)
-    with torch.cuda.device(words.device):
+    dev = words.device
+    # ticket, the tail's chunk ticket, one state word a span of SPAN blocks
+    scan = torch.zeros((2 + -(-n // SPAN),), dtype=torch.int64, device=dev)
+    summary = torch.empty((n // nb + 2,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
         err = _lib().stitch_launch(
-            words.data_ptr(), bits.data_ptr(), local_off.data_ptr(),
-            img_bits.data_ptr(), starts.data_ptr(), stream.data_ptr(),
-            n, int(nb), stream.shape[0],
-            torch.cuda.current_stream().cuda_stream,
+            words.data_ptr(), bits.data_ptr(), scan.data_ptr(),
+            stream.data_ptr(), summary.data_ptr(), n, int(nb),
+            stream.shape[0], _build.stream_handle(dev),
         )
     _build.check(err, "stitch")
-    return starts
+    return summary
 
 
 def stitch(words: torch.Tensor, bits: torch.Tensor, nb: int, cap_words: int):
-    """See the module docstring.  CUDA tensors go to the kernels, CPU
+    """See the module docstring.  CUDA tensors go to the kernel, CPU
     tensors to the plain version; nothing else is tried."""
     if words.device.type == "cpu":
         return stitch_plain(words, bits, nb, cap_words)
@@ -125,11 +133,7 @@ def stitch(words: torch.Tensor, bits: torch.Tensor, nb: int, cap_words: int):
     words = words.contiguous()
     bits = bits.contiguous()
     nimg = n // nb
-    stream = torch.zeros(cap_words, dtype=torch.int32, device=words.device)
-    starts = launch_kernels(words, bits, nb, stream)
+    stream = torch.empty(cap_words, dtype=torch.int32, device=words.device)
+    summary = launch_kernels(words, bits, nb, stream)
     launches += 1
-    total = starts[nimg]
-    # total is int32: a capacity of 2**31 bits or more can never be passed
-    limit = min(cap_words * 32, (1 << 31) - 1)
-    status = (total > limit).to(torch.int32) * 2
-    return stream, starts[:nimg], total, status
+    return stream, summary[:nimg], summary[nimg], summary[nimg + 1]

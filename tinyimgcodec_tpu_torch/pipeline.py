@@ -6,11 +6,11 @@ on an NVIDIA card.  Per batch:
 - fast:  pixels -> [encode2: float32 transform + entropy] -> [place]
   (``version="v2"``, the default), or pixels -> [encode1: the same
   transform and symbols, each block packed from bit 0 of its own row] ->
-  [stitch: scan + funnel-shift scatter] (``version="v1"``, the JAX
+  [stitch: look-back scan + funnel-shift gather] (``version="v1"``, the JAX
   package's comparison path; same bytes)
-- exact: pixels -> [exact_transform: float64 + tie flags] -> host float64
-  recompute of the flagged blocks (one host sync) -> [encode2 from
-  coefficients] -> [place]
+- exact: pixels -> [exact_transform: float64 on the tensor cores + tie
+  flags] -> host float64 recompute of the flagged blocks (one host sync)
+  -> [encode2 from coefficients] -> [place]
 
 followed by one pull of the stream words, image starts, total and status,
 and per-image slicing at the byte-aligned image starts.  Exact-mode bytes
