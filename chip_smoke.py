@@ -5,21 +5,28 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the six CUDA kernels from ``tinyimgcodec_tpu_torch/csrc`` with
-``nvcc``, holds each against its plain PyTorch version on the card, drives
-the port's main path -- the round trip: ``compress_batch`` of a 49 x 512 x
-512 corpus (exact, fast, and fast through the v1 kernels), one odd-shaped
-``compress``, then ``decompress_batch`` / ``decompress`` of those streams
--- through the public entry points, checks the bytes and the pixels against
-the float64 host oracle, shows from the launch counters that the path went
-through the kernels and from the engine's counters which decode leg took
-each image, and times every kernel at the corpus shapes beside its plain
-version and its bound.  Every kernel, each redesigned for this card, is
-also held against its plain version at the shapes that steer its paths
+It builds the C host runtime (``tinyimgcodec_tpu_torch/native``, with
+``cc``) and the six CUDA kernels from ``tinyimgcodec_tpu_torch/csrc`` with
+``nvcc``, holds each kernel against its plain PyTorch version on the card,
+drives the port's main path -- the round trip: ``compress_batch`` of a 49 x
+512 x 512 corpus (exact, fast, and fast through the v1 kernels), one
+odd-shaped ``compress``, then ``decompress_batch`` / ``decompress`` of
+those streams -- and the auto-table encode (``compress(...,
+auto_generate_huffman_table=True)`` of every corpus image, a quality sweep
+and a 4096x4096 image, and the decode of those streams) through the public
+entry points, checks the bytes and the pixels against the float64 host
+oracle, shows from the launch counters that each path went through the
+kernels and from the engine's counters which decode leg took each image,
+times the two host decode legs (C decoder), and times every kernel at the
+corpus shapes beside its plain version and its bound.  Every kernel, each
+redesigned for this card, is also held against its plain version at the
+shapes that steer its paths
 (odd block counts, ragged tiles, one huge image, thousands of one-block
 images, streams denser than the staged window, corrupt chunk arrays,
 blocks of a few bits, capacities that cut a block or dwarf the stream,
-misaligned tensors).
+misaligned tensors), and ``encode2`` also on Huffman tables built at run
+time, hand-made ones with 16-bit codes and ZRL prefixes of 32 and 48 bits
+included.
 
 Output: one JSON object per phase, then the ``{"kernels": [...]}`` line,
 the card's name and power limit as ``nvidia-smi`` prints them, and as the
@@ -80,13 +87,15 @@ if not REHEARSE and not torch.cuda.is_available():
     sys.exit(2)
 
 import tinyimgcodec_tpu_torch as codec  # noqa: E402
-from tinyimgcodec_tpu_torch import container  # noqa: E402
+from tinyimgcodec_tpu_torch import (  # noqa: E402
+    container, golden, huffman, native,
+)
 from tinyimgcodec_tpu_torch.corpus import (  # noqa: E402
     blocks_of_random_bits, synthetic_corpus,
 )
 from tinyimgcodec_tpu_torch.device import card_info  # noqa: E402
 from tinyimgcodec_tpu_torch.engine import (  # noqa: E402
-    Engine, _host_decode_blocks,
+    KERNEL_BLOCK_BITS, Engine, _host_decode_blocks,
 )
 from tinyimgcodec_tpu_torch.metrics import psnr  # noqa: E402
 from tinyimgcodec_tpu_torch.ops import (  # noqa: E402
@@ -227,7 +236,16 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """The C host runtime (``native/``, with ``cc``) and the six CUDA
+    kernels (``nvcc``, all started together).  A failed build fails the
+    run."""
+    t0 = time.perf_counter()
+    native_path = native.library_path()
+    native.lib()
+    native_secs = time.perf_counter() - t0
     if REHEARSE:
+        emit("build", native=os.path.basename(native_path),
+             native_seconds=round(native_secs, 2))
         return
     t0 = time.perf_counter()
     _build.build_all()
@@ -246,7 +264,9 @@ def phase_build() -> None:
                          and not ln.startswith("0 bytes stack frame, "
                                                "0 bytes spill stores")],
         }
-    emit("build", seconds=round(secs, 2), ptxas=usage)
+    emit("build", seconds=round(secs, 2), ptxas=usage,
+         native=os.path.basename(native_path),
+         native_seconds=round(native_secs, 2))
 
 
 def tie_bar(zz_k: torch.Tensor, zz_p: torch.Tensor, blocks: torch.Tensor,
@@ -1460,6 +1480,251 @@ def phase_main_path(corpus: np.ndarray) -> tuple[dict, list[bytes]]:
     return launched, exact
 
 
+def auto_table_launches(n_img: int) -> dict:
+    """What ``n_img`` auto-table encodes on the kernel route launch:
+    ``exact_transform``, ``encode2`` from coefficients and ``place`` once
+    an image each, ``place`` once more where the capacity was too small."""
+    return {"exact_transform": (n_img,), "encode2_zz": (n_img,),
+            "place": tuple(range(n_img, 2 * n_img + 1))}
+
+
+def auto_table_route(img: np.ndarray, quality: int) -> str:
+    """The route the engine must take, by its own rule worked out on the
+    float64 oracle's coefficients: host for an extended table or a block
+    past ``KERNEL_BLOCK_BITS``, else the kernels."""
+    arrays = golden.encode_arrays(img, quality)
+    spec = huffman.build_huffman_spec(arrays)
+    if spec.extended or (huffman.block_bit_counts(arrays.dc, arrays.ac, spec)
+                         .max() > KERNEL_BLOCK_BITS):
+        return "host"
+    return "kernel"
+
+
+def handmade_specs() -> dict:
+    """Run-time tables no image's own histogram gives: codes of 16
+    bits for the rare DC and AC symbols (a DC put of up to 27 bits) with a
+    ZRL code of 16 bits (prefixes of 16, 32 and 48 bits; the 32-bit one is
+    one whole word), and the same with no ZRL code at all."""
+    def spec(zrl: bool):
+        dc = {c: 16 for c in range(12)}
+        dc.update({0: 3, 1: 3, 2: 3, 3: 4, 4: 4, 5: 5})
+        ac = {(r, s): 16 for r in range(16) for s in range(1, 11)}
+        ac.update({(0, 0): 2, (0, 1): 3, (0, 2): 4, (1, 1): 5, (0, 3): 6})
+        if zrl:
+            ac[(15, 0)] = 16
+        return huffman.spec_from_lengths(dc, ac)
+
+    return {"16-bit codes, 16-bit ZRL": spec(True),
+            "16-bit codes, no ZRL": spec(False)}
+
+
+def runs_coefficients(rng, n: int, zrl: bool) -> np.ndarray:
+    """(64, n) int32 coefficient-major blocks for hand-made tables: with
+    ``zrl`` runs of 16, 32 and 48 zeros before coefficients of sizes up to
+    10 (slots of up to 74 bits), else no run of 16 zeros; a quarter of the
+    blocks dense (40 coefficients).  Every block stays under 52 words."""
+    zz = np.zeros((64, n), np.int32)
+    zz[0] = rng.randint(-1023, 1024, n)
+    sign = lambda k: rng.choice([-1, 1], k)
+    for b in range(n):
+        kind = b % 4
+        if not zrl:  # gaps of one or two zeros, 21 to 32 coefficients
+            pos = np.arange(1 + kind, 64, 2 + kind % 2)
+        elif kind == 3:
+            pos = rng.choice(np.arange(1, 64), 40, replace=False)
+        else:  # runs of 16 and 32, of 48, of 16 three times
+            pos = ([1, 18, 51], [14, 63], [1, 5, 22, 39, 56])[kind]
+        zz[pos, b] = rng.randint(1, 1024, len(pos)) * sign(len(pos))
+    return zz
+
+
+def phase_auto_table(corpus: np.ndarray) -> tuple[dict, int, list]:
+    """Auto-table encode through the public entry point: every corpus image
+    at q=50, a quality sweep on three images, the 4096x4096 image; bytes
+    against the host oracle, the route against the engine's rule, launch
+    counts per path, every stream decoded on its leg to the oracle's
+    pixels.  Then ``encode2`` against its plain version on run-time
+    tables, hand-made ones included.  Returns (launches by path, the
+    largest |kernel - plain| of ``encode2``, the corpus streams)."""
+    per_path: dict = {}
+    n_img = corpus.shape[0]
+
+    def encode(images, quality, label):
+        routes = [auto_table_route(im, quality) for im in images]
+        k = routes.count("kernel")
+        want = auto_table_launches(k)
+        want["exact_transform"] = (len(images),)  # both routes transform
+        out = counted(label, lambda: [codec.compress(
+            im, quality, auto_generate_huffman_table=True, device=DEV)
+            for im in images], want, per_path)
+        for i, (im, data) in enumerate(zip(images, out)):
+            if data != container.compress(im, quality, True,
+                                          block_index=True):
+                fail(f"auto_table[{label}]: image {i} differs from "
+                     "container.compress(..., True, block_index=True)")
+        return out, routes
+
+    t0 = time.perf_counter()
+    streams, routes = encode(corpus, 50, f"compress auto_table x{n_img} q50")
+    if routes != ["kernel"] * n_img:
+        fail(f"auto_table: corpus at q=50 took routes {routes}")
+    sweep = []
+    picks = [0, 17 % n_img, 33 % n_img]
+    for quality in (10, 90, 97, 99):
+        out, r = encode(corpus[picks], quality,
+                        f"compress auto_table q{quality} x{len(picks)}")
+        sweep += [(quality, i, d, rt) for i, d, rt in zip(picks, out, r)]
+    big = one_large_image(corpus)
+    out, r = encode(big, 50, "compress auto_table 4096x4096 q50")
+    sweep.append((50, "4096x4096", out[0], r[0]))
+    encode_secs = time.perf_counter() - t0
+
+    # every stream decoded, one call a stream (a table of its own each):
+    # standard-range tables on the kernel leg, one decode launch each
+    t0 = time.perf_counter()
+    engine = Engine("exact", DEV)
+    every = [(50, i, d, "kernel") for i, d in enumerate(streams)] + sweep
+    want_leg = {"kernel": "kernel", "host": "host_entropy"}
+    legs = {"kernel": 0, "host_entropy": 0, "host_decoder": 0}
+
+    def decode_all():
+        out = []
+        for quality, i, data, route in every:
+            out.append(engine.decompress(data))
+            leg = want_leg[route]
+            if engine.decode_stats[leg] != 1:
+                fail(f"auto_table: q{quality} image {i} decoded on "
+                     f"{engine.decode_stats}, expected {leg}")
+            legs[leg] += 1
+        return out
+
+    on_kernel = sum(route == "kernel" for *_, route in every)
+    decoded = counted(f"decompress auto_table x{len(every)}", decode_all,
+                      {"entropy_decode": (on_kernel,)}, per_path)
+    for (quality, i, data, _), out in zip(every, decoded):
+        if not np.array_equal(out, container.decompress(data)):
+            fail(f"auto_table: q{quality} image {i} decodes to other "
+                 "pixels than the oracle's")
+    decode_secs = time.perf_counter() - t0
+
+    # encode2 against its plain version on run-time tables
+    worst = 0
+    cases = []
+    for quality, i in ((50, 0), (97, picks[1])):
+        img = corpus[i:i + 1]
+        spec = huffman.build_huffman_spec(golden.encode_arrays(img[0],
+                                                               quality))
+        if spec.extended:
+            continue
+        zz = exact_coefficients(blocks_of(img),
+                                quality, CodecTables.build(quality, DEV))
+        _, err = encode2_both(f"table of image {i} q{quality}", zz,
+                              CodecTables.from_spec(spec, quality, DEV),
+                              zz.shape[1])
+        worst = max(worst, err)
+        cases.append({"case": f"table built for image {i} at q{quality}",
+                      "max_code_bits": int(max(spec.dc_len.max(),
+                                               spec.ac_len.max()))})
+    rng = np.random.RandomState(61)
+    for name, spec in handmade_specs().items():
+        zrl = "no ZRL" not in name
+        n = 256 if REHEARSE else 8192
+        zz_np = runs_coefficients(rng, n, zrl)
+        ac = np.ascontiguousarray(zz_np[1:].T)
+        nz, run, size = huffman.ac_symbols(ac)
+        slot = (run >> 4) * int(spec.ac_len[15, 0]) + spec.ac_len[
+            run & 15, size] + size
+        dc = np.diff(zz_np[0], prepend=np.int32(0))
+        bits = huffman.block_bit_counts(dc, ac, spec)
+        if bits.max() > KERNEL_BLOCK_BITS:
+            fail(f"encode2[{name}]: a hand-made block passes 52 words")
+        zz = torch.from_numpy(zz_np).to(DEV)
+        tables = CodecTables.from_spec(spec, 50, DEV)
+        for nb in (64, n):  # many images; one image (the longest scan)
+            _, err = encode2_both(f"{name}, nb {nb}", zz, tables, nb)
+            worst = max(worst, err)
+        cases.append({"case": name, "blocks": n,
+                      "zrl_prefix_bits": sorted(set(
+                          ((run[nz] >> 4) * int(spec.ac_len[15, 0]))
+                          .tolist())),
+                      "max_slot_bits": int(slot[nz].max()),
+                      "max_block_bits": int(bits.max())})
+    if not any(c.get("max_slot_bits", 0) > 64 for c in cases):
+        fail("encode2: no hand-made slot passed 64 bits")
+    launched = {k: sum(c[k] for c in per_path.values())
+                for k in next(iter(per_path.values()))}
+    emit("auto_table", images=n_img, quality=50,
+         oracle_checked=f"{n_img}/{n_img} corpus streams, q 10, 90, 97 "
+         f"and 99 on images {picks} and the 4096x4096 image byte-equal to "
+         "container.compress(..., True, block_index=True); every stream "
+         "decoded to container.decompress's pixels",
+         routes={f"q{q} image {i}": r for q, i, _, r in sweep},
+         decode_legs=legs, launches=launched, launches_by_path=per_path,
+         encode2_runtime_tables=cases, encode2_max_abs_err=worst,
+         bytes_corpus=sum(map(len, streams)),
+         sha256_corpus=hashlib.sha256(b"".join(streams)).hexdigest(),
+         encode_and_check_seconds=round(encode_secs, 1),
+         decode_and_check_seconds=round(decode_secs, 1),
+         tolerance="bytes equal; pixels equal; encode2 rows, meta and flag "
+         "equal to the plain version")
+    return per_path, worst, streams
+
+
+def phase_host_legs(exact: list[bytes], nb: int) -> dict:
+    """The two host legs of decode at 512x512, now through the C decoder:
+    a stream without its trailer (host entropy) and one with a corrupt
+    chunk (host decoder).  The first is held to the pure-Python cursor's
+    pixels; the second to ``container.decompress`` (the host decoder,
+    which decodes a TICX stream chunk by chunk), and its C decode without
+    the trailer to the Python cursor's.  Each is timed (host clock,
+    synchronised, median)."""
+    reps = 1 if REHEARSE else 5
+    pay_end = container.parse_block_index(exact[1], nb)[2]
+    flipped = first_flip_that_fails(exact[2], nb)
+    cases = {"host_entropy": exact[1][:pay_end], "host_decoder": flipped}
+    out = {}
+    for leg, data in cases.items():
+        serial = data[:container.parse_block_index(data, nb)[2]] if (
+            leg == "host_decoder") else data
+        t0 = time.perf_counter()
+        cursor = golden.decode_arrays(
+            container.decompress_to_arrays(serial, use_native=False))
+        python_secs = time.perf_counter() - t0
+        if not np.array_equal(container.decompress(serial), cursor):
+            fail(f"host_legs[{leg}]: the C decoder and the Python cursor "
+                 "differ")
+        oracle = cursor if leg == "host_entropy" else container.decompress(
+            data)
+        engine = Engine("exact", DEV)
+        times, host = [], []
+        for _ in range(reps + 1):
+            sync()
+            t0 = time.perf_counter()
+            got = engine.decompress_batch([data])
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            alone = container.decompress(data)
+            host.append((time.perf_counter() - t0) * 1e3)
+        stats = dict(engine.decode_stats)
+        if stats[leg] != 1:
+            fail(f"host_legs: the {leg} stream took {stats}")
+        if not (np.array_equal(got[0], oracle)
+                and np.array_equal(alone, oracle)):
+            fail(f"host_legs: {leg} pixels differ from the oracle's")
+        out[leg] = {"decompress_batch_ms": float(np.median(times[1:])),
+                    "container_decompress_ms": float(np.median(host[1:])),
+                    "python_cursor_decode_s": round(python_secs, 3),
+                    "legs": stats}
+    side = int(round(np.sqrt(nb))) * 8
+    emit("host_legs", image=f"{side}x{side}", repeats=reps,
+         note="decompress_batch = the engine's whole call (for the corrupt "
+         "stream the kernel leg runs first); container_decompress = the C "
+         "decoder and the float64 inverse transform on the host alone; "
+         "python_cursor_decode = the pure-Python oracle, once", **out)
+    return out
+
+
 def phase_kernels(corpus: np.ndarray, launched: dict, errs: dict,
                   streams: list[bytes], one_image: dict, place_times: dict,
                   encode1_image: dict) -> list:
@@ -1712,9 +1977,74 @@ def phase_kernels(corpus: np.ndarray, launched: dict, errs: dict,
     return out
 
 
-def phase_timing(corpus: np.ndarray, streams: list[bytes]) -> None:
+def auto_table_breakdown(img: np.ndarray, stage) -> None:
+    """Where one exact auto-table encode of a 512x512 image spends its
+    time: the steps of ``Engine._compress_auto_table``, each timed alone
+    with ``stage`` (host clock, synchronised, median)."""
+    from tinyimgcodec_tpu_torch.bitstream import BitWriter, concat_bit_payload
+    from tinyimgcodec_tpu_torch.pipeline import place_stream
+
+    quality = 50
+    nb = img.size // 64
+    tables = CodecTables.build(quality, DEV)
+
+    def coefficients():
+        blocks = transform.blockify(torch.from_numpy(img[None].copy()).to(
+            DEV)).reshape(nb, 64)
+        return exact_coefficients(blocks, quality, tables)
+
+    zz = coefficients()
+    zz_np = zz.cpu().numpy()
+    dc = np.diff(zz_np[0], prepend=np.int32(0)).astype(np.int32)
+    ac = np.ascontiguousarray(zz_np[1:].T)
+
+    counts = huffman.symbol_counts(dc, ac)
+    spec = huffman.build_huffman_spec_from_counts(*counts)
+    run_tables = CodecTables.from_spec(spec, quality, DEV)
+    packed, meta, over = encode2.encode2(zz, run_tables, nb, from_zz=True)
+    payload, _, total = place_stream(packed, meta, over, nb, nb * 8)
+    arrays = golden.CodecArrays(height=img.shape[0], width=img.shape[1],
+                                quality=quality, dc=dc, ac=ac)
+
+    def assemble():
+        w = BitWriter()
+        w.write_bytes(container.make_header(arrays, custom_table=True))
+        container.write_huffman_table(w, spec.string_tables())
+        data = concat_bit_payload(w.to_bytes(), w.bit_length(), payload,
+                                  total)
+        return data + container.make_block_index(
+            meta[0].cpu().numpy().astype(np.int64))
+
+    emit("auto_table_breakdown", image=list(img.shape), quality=quality,
+         note="steps of one exact auto-table compress, each timed alone "
+         "(host clock, synchronised, median); coefficients = upload + "
+         "blockify + exact_transform + float64 recompute of flagged "
+         "blocks; then the host's histograms, Huffman tables and route "
+         "rule; encode2_place = both kernels + the pull of status, total "
+         "and stream",
+         compress_ms=stage(lambda: codec.compress(
+             img, quality, auto_generate_huffman_table=True, device=DEV)),
+         coefficients_ms=stage(coefficients),
+         pull_coefficients_ms=stage(lambda: zz.cpu().numpy()),
+         symbol_counts_ms=stage(lambda: huffman.symbol_counts(dc, ac)),
+         huffman_tables_ms=stage(
+             lambda: huffman.build_huffman_spec_from_counts(*counts)),
+         block_bit_counts_ms=stage(
+             lambda: huffman.block_bit_counts(dc, ac, spec).max()),
+         codec_tables_from_spec_ms=stage(
+             lambda: CodecTables.from_spec(spec, quality, DEV)),
+         encode2_place_ms=stage(lambda: place_stream(
+             *encode2.encode2(zz, run_tables, nb, from_zz=True), nb,
+             nb * 8)),
+         assemble_ms=stage(assemble))
+
+
+def phase_timing(corpus: np.ndarray, streams: list[bytes],
+                 auto: list[bytes]) -> None:
     """End-to-end corpus pass, warm: from host memory and from the card;
-    and the decode pass of the corpus streams back to pixels on the host."""
+    the decode pass of the corpus streams back to pixels on the host; the
+    auto-table pass (one ``compress`` an image) and the decode of its
+    streams (``auto``)."""
     reps = 1 if REHEARSE else 5
     mp = corpus.size / 1e6
     staged = torch.from_numpy(corpus).to(DEV)
@@ -1754,6 +2084,19 @@ def phase_timing(corpus: np.ndarray, streams: list[bytes]) -> None:
             streams, precision=precision, device=DEV))
         res[f"decode_{precision}_ms"] = ms
         res[f"decode_{precision}_MP_per_s"] = mp / ms * 1e3
+    # auto-table encode: one compress call an image (tables are per image)
+    for precision in ("exact", "fast"):
+        ms = stage(lambda: [codec.compress(
+            im, 50, auto_generate_huffman_table=True, precision=precision,
+            device=DEV) for im in corpus])
+        res[f"auto_table_{precision}_from_host_ms"] = ms
+        res[f"auto_table_{precision}_from_host_MP_per_s"] = mp / ms * 1e3
+    # the auto-table streams back to pixels (kernel leg, a table of its own
+    # per stream: decoded one call a stream)
+    ms = stage(lambda: [codec.decompress(d, device=DEV) for d in auto])
+    res["auto_table_decode_exact_ms"] = ms
+    res["auto_table_decode_exact_MP_per_s"] = mp / ms * 1e3
+    auto_table_breakdown(corpus[0], stage)
 
     # where an exact pass spends its time: each stage alone, host clock
     # around a synchronised call, median of `reps`
@@ -1837,7 +2180,9 @@ def phase_timing(corpus: np.ndarray, streams: list[bytes]) -> None:
               "streams and the per-image slicing; on_device skips only "
               "the upload of the pixels; decode_* = decompress_batch of the "
               "exact corpus streams incl. prepare_batch on the host and "
-              "the pull of the pixels", **res)
+              "the pull of the pixels; auto_table_* = one compress(..., "
+              "auto_generate_huffman_table=True) an image, 49 calls, and "
+              "one decompress a stream", **res)
 
 
 def main() -> None:
@@ -1861,9 +2206,16 @@ def main() -> None:
     errs["stitch"] = max(errs["stitch"], phase_stitch_shapes(corpus))
     errs["entropy_decode"] = phase_decode_check(corpus)
     launched, exact_streams = phase_main_path(corpus)
+    auto_paths, auto_err, auto_streams = phase_auto_table(corpus)
+    errs["encode2"] = max(errs["encode2"], auto_err)
+    # this slice's paths count with the round trip's
+    for c in auto_paths.values():
+        for k in launched:
+            launched[k] += c[k]
+    phase_host_legs(exact_streams, (corpus.shape[1] // 8) ** 2)
     kernels = phase_kernels(corpus, launched, errs, exact_streams, one_image,
                             place_times, encode1_image)
-    phase_timing(corpus, exact_streams)
+    phase_timing(corpus, exact_streams, auto_streams)
     emit("done", seconds=round(time.perf_counter() - T_START, 1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info, flush=True)

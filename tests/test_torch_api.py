@@ -79,13 +79,20 @@ def test_wrong_rank_is_refused():
 
 
 def test_unported_parts_say_so():
-    """Auto-table *encode* on the device is still to come; such streams
-    decode through every backend (the decode slice is in)."""
-    with pytest.raises(NotImplementedError, match="auto-table"):
-        ttic.compress(IMG, 50, auto_generate_huffman_table=True,
-                      device="cpu")
+    """Nothing of the public API raises for want of a port any more:
+    auto-table encode runs on the device (here its plain versions) and
+    writes the host oracle's bytes, and such streams decode through every
+    backend."""
     data = ttic.compress(IMG, 50, backend="host",
                          auto_generate_huffman_table=True)
+    assert data == jtic.compress(IMG, 50, backend="host",
+                                 auto_generate_huffman_table=True,
+                                 block_index=True)
+    for backend in ("auto", "torch"):
+        assert ttic.compress(IMG, 50, auto_generate_huffman_table=True,
+                             backend=backend, device="cpu") == data
+    cfg = ttic.CodecConfig(quality=50, auto_huffman_table=True)
+    assert ttic.compress(IMG, config=cfg, device="cpu") == data
     want = jtic.decompress(data, backend="host")
     assert np.array_equal(ttic.decompress(data, backend="host"), want)
     for backend in ("auto", "torch"):
@@ -175,6 +182,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "tinyimgcodec_tpu_torch.ops.entropy_decode, "
         "tinyimgcodec_tpu_torch.ops.transform, "
         "tinyimgcodec_tpu_torch.engine, "
+        "tinyimgcodec_tpu_torch.native, "
         "tinyimgcodec_tpu_torch.ops._build\n"
         "img = (np.arange(64 * 64).reshape(64, 64) % 251).astype(np.uint8)\n"
         "d = t.compress(img, 50, device='cpu')\n"
@@ -185,6 +193,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "v1 = compress_batch_device(img[None], 50, device='cpu', "
         "version='v1')\n"
         "assert t.decompress(v1[0], device='cpu').shape == img.shape\n"
+        "auto = t.compress(img, 50, auto_generate_huffman_table=True, "
+        "device='cpu')\n"
+        "assert (t.decompress(auto, device='cpu') == "
+        "t.decompress(auto, backend='host')).all()\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib' or "
         "m == 'tinyimgcodec_tpu' or m.startswith('tinyimgcodec_tpu.')]\n"

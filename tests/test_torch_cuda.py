@@ -664,3 +664,47 @@ def test_stream_handle_is_the_current_stream(cuda):
                           torch.from_numpy(meta).to(dev), nb, 4)
     side.synchronize()
     assert int(out[2]) == 59 and not bool(out[3])
+
+
+@pytest.mark.parametrize("quality", [10, 50, 90, 97, 99])
+def test_auto_table_on_the_card_equals_the_oracle(cuda, quality):
+    """Auto-table encode: coefficients, ``encode2`` with the run-time
+    tables and ``place`` on the card (or the host container for an
+    extended table); the oracle's bytes, decoded to its pixels."""
+    from tinyimgcodec_tpu_torch import compress
+
+    img = synthetic_image(61, 83, seed=70)
+    before = encode2.launches_by_input["zz"]
+    data = compress(img, quality, auto_generate_huffman_table=True,
+                    device=cuda)
+    assert data == container.compress(img, quality, True, block_index=True)
+    assert encode2.launches_by_input["zz"] - before in (0, 1)
+    assert np.array_equal(decompress(data, device=cuda),
+                          container.decompress(data))
+
+
+def test_encode2_on_hand_made_run_time_tables_equals_plain(cuda):
+    """16-bit codes and a 16-bit ZRL code (prefixes of 16, 32 and 48 bits,
+    slots of up to 74 bits) through the kernel and the plain version."""
+    from tinyimgcodec_tpu_torch.huffman import spec_from_lengths
+
+    dc = {c: 16 for c in range(12)}
+    dc.update({0: 3, 1: 3, 2: 3})
+    ac = {(r, s): 16 for r in range(16) for s in range(1, 11)}
+    ac.update({(0, 0): 2, (0, 1): 3, (15, 0): 16})
+    t = CodecTables.from_spec(spec_from_lengths(dc, ac), 50, cuda)
+    rng = np.random.RandomState(71)
+    n = 1024
+    zz = np.zeros((64, n), np.int32)
+    zz[0] = rng.randint(-1023, 1024, n)
+    for b in range(n):
+        pos = ([1, 18, 51], [14, 63], [1, 5, 22, 39, 56],
+               rng.choice(np.arange(1, 64), 40, replace=False))[b % 4]
+        zz[pos, b] = rng.randint(1, 1024, len(pos)) * rng.choice(
+            [-1, 1], len(pos))
+    x = torch.from_numpy(zz).to(cuda)
+    for nb in (64, n):
+        k = encode2.encode2(x, t, nb, from_zz=True)
+        p = encode2.encode2_plain(x, t, nb, from_zz=True)
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+        assert not bool(k[2]) and not bool(p[2])

@@ -174,6 +174,55 @@ def test_streams_without_a_trailer_take_the_host_entropy_leg():
     assert off.decode_stats["host_entropy"] == 3
 
 
+@pytest.mark.parametrize("bound, stats", [
+    (2 * 64 + 5, {"kernel": 3, "host_entropy": 0, "host_decoder": 0}),
+    (63, {"kernel": 0, "host_entropy": 3, "host_decoder": 0}),
+])
+def test_a_batch_over_the_block_bound_is_decoded_in_sub_batches(
+        bound, stats, monkeypatch):
+    """A uniform batch of more blocks than one decode launch takes is cut
+    at image boundaries (here: 2 + 1 images of 64 blocks), every sub-batch
+    on the kernel leg; an image that alone passes the bound takes the
+    host-entropy leg.  (The bound is lowered from 2**25 blocks here.)"""
+    from tinyimgcodec_tpu_torch import engine as tengine
+    from tinyimgcodec_tpu_torch.ops import entropy_decode as ted
+
+    whole = Engine("exact", "cpu").decompress_batch(STREAMS)
+    totals = []
+    real = tengine.entropy_decode_chunks
+
+    def spy(*args):
+        totals.append(args[-2])  # nb_total of the launch
+        return real(*args)
+
+    monkeypatch.setattr(tengine, "MAX_DECODE_BLOCKS", bound)
+    monkeypatch.setattr(tengine, "entropy_decode_chunks", spy)
+    eng = Engine("exact", "cpu")
+    out = eng.decompress_batch(STREAMS)
+    assert np.array_equal(out, whole) and out.shape == (3, 64, 64)
+    assert eng.decode_stats == stats
+    assert totals == ([128, 64] if stats["kernel"] else [])
+    # a corrupt image in the second sub-batch goes to the host decoder
+    pay_end = tcontainer.parse_block_index(STREAMS[2], 64)[2]
+    for pos in range(20, pay_end, 7):
+        mut = bytearray(STREAMS[2])
+        mut[pos] ^= 0xFF
+        prep = ted.prepare_batch([bytes(mut)])
+        args = [torch.from_numpy(prep["words"].view(np.int32))] + [
+            torch.from_numpy(prep[k]) for k in tengine._CHUNK_KEYS]
+        _, ok = ted.entropy_decode_chunks_plain(
+            *args, 64, ttables.DecodeTables.build(50, device="cpu"))
+        if not bool(ok.all()):
+            break
+    batch = [STREAMS[0], STREAMS[1], bytes(mut)]
+    out = eng.decompress_batch(batch)
+    for o, d in zip(out, batch):
+        assert np.array_equal(o, tcontainer.decompress(d))
+    if stats["kernel"]:
+        assert eng.decode_stats == {"kernel": 2, "host_entropy": 0,
+                                    "host_decoder": 1}
+
+
 def test_a_corrupt_stream_goes_to_the_host_decoder_alone():
     """A flipped payload byte either breaks a chunk -- that image is then
     decoded by the host decoder (the oracle's block-by-block degradation)

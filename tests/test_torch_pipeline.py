@@ -187,6 +187,42 @@ def test_oversize_batch_is_refused_loudly():
         compress_batch_device(big, 50, device="cpu")
 
 
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_a_batch_over_the_pixel_limit_is_cut_at_image_boundaries(
+        precision, as_tensor, monkeypatch):
+    """Images are self-contained streams, so a batch of more pixels than
+    the limit goes through in calls of whole images under it and gives
+    the bytes of one call.  (The limit is lowered to 2.5 images here.)"""
+    import torch
+
+    from tinyimgcodec_tpu_torch import pipeline
+
+    imgs = np.stack([synthetic_image(40, 48, seed=s) for s in range(70, 75)])
+    whole = compress_batch_device(imgs, 50, precision=precision,
+                                  block_index=True, device="cpu")
+    monkeypatch.setattr(pipeline, "MAX_PIXELS", 40 * 48 * 5 // 2)
+    batch = torch.from_numpy(imgs.copy()) if as_tensor else imgs
+    blocks = []  # the blocks of each encode2 call
+    real = pipeline.encode2
+
+    def spy(x, tables, nb, from_zz=False):
+        blocks.append(x.shape[1] if from_zz else x.shape[0])
+        return real(x, tables, nb, from_zz=from_zz)
+
+    monkeypatch.setattr(pipeline, "encode2", spy)
+    got = compress_batch_device(batch, 50, precision=precision,
+                                block_index=True, device="cpu")
+    assert got == whole
+    assert blocks == [2 * 30, 2 * 30, 30]
+    if precision == "exact":
+        assert got == [jcontainer.compress(im, 50, block_index=True)
+                       for im in imgs]
+    with pytest.raises(NotImplementedError, match="tiled"):
+        compress_batch_device(np.zeros((1, 72, 72), np.uint8), 50,
+                              device="cpu")
+
+
 @pytest.mark.parametrize(
     "imgs, quality",
     [(NATURAL, 50), (NATURAL, 10), (NOISE, 90),

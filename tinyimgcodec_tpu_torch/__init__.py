@@ -2,14 +2,17 @@
 
 A grayscale JPEG-style codec (8x8 DCT -> quantize -> zig-zag -> DC DPCM ->
 Annex K Huffman coding) whose encode and decode paths run on an NVIDIA
-Hopper card through hand-written CUDA kernels (``csrc/``).  This package imports
+Hopper card through hand-written CUDA kernels (``csrc/``), with a C host
+runtime (``native/``) for entropy decode on the host.  This package imports
 ``torch``, ``numpy`` and ``scipy`` only; it shares no code with the JAX
 package, whose bytes it reproduces.
 
 Public API:
 
-- ``compress(image, quality) -> bytes`` and ``compress_batch(images,
-  quality) -> list[bytes]``: on the card by default (``device=None``);
+- ``compress(image, quality) -> bytes`` (with
+  ``auto_generate_huffman_table=True``: tables built for the image) and
+  ``compress_batch(images, quality) -> list[bytes]``: on the card by
+  default (``device=None``);
   without a card they raise unless ``device="cpu"`` or
   ``backend="host"`` is passed.
 - ``decompress(data) -> image`` and ``decompress_batch(streams)``: the

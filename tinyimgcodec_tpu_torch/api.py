@@ -11,11 +11,12 @@ mirror the JAX package's entry points and run on the CUDA card.
 - ``"host"``: the float64 numpy/scipy oracle (``container.py``), which
   needs no device.
 
-Decode takes TICX-indexed streams through the entropy decode kernel and
-everything else through host entropy decode plus the device transform
-(``engine.py`` says which stream goes where).  Not ported yet, raising
-``NotImplementedError``: encoding with dynamic Huffman tables on the
-device (such streams do decode).
+``compress(..., auto_generate_huffman_table=True)`` codes the image with
+Huffman tables built for it (``Engine.compress``); ``compress_batch``
+takes no such switch, as in the JAX package.  Decode takes TICX-indexed
+streams through the entropy decode kernel and everything else through the
+C host entropy decoder plus the device transform (``engine.py`` says which
+stream goes where).
 """
 
 from __future__ import annotations

@@ -98,6 +98,7 @@ class BitWriter:
     def __init__(self) -> None:
         self._values: list[int] = []
         self._lengths: list[int] = []
+        self._nbits = 0  # sum of _lengths: bit_length() is asked per block
 
     def write_bits(self, value: int, nbits: int) -> None:
         """Append the low ``nbits`` of ``value``, MSB first."""
@@ -106,6 +107,7 @@ class BitWriter:
         if nbits:
             self._values.append(value & ((1 << nbits) - 1))
             self._lengths.append(nbits)
+            self._nbits += nbits
 
     def write_uint(self, value: int, nbits: int) -> None:
         if value < 0 or (nbits < 64 and value >= (1 << nbits)):
@@ -132,7 +134,7 @@ class BitWriter:
             self.write_bits(b, 8)
 
     def bit_length(self) -> int:
-        return int(sum(self._lengths))
+        return self._nbits
 
     def to_bytes(self) -> bytes:
         return pack_symbols(
@@ -147,6 +149,7 @@ class BitWriter:
         keep = lengths > 0
         self._values.extend(int(v) for v in values[keep])
         self._lengths.extend(int(l) for l in lengths[keep])
+        self._nbits += int(lengths[keep].sum())
 
 
 class BitReader:

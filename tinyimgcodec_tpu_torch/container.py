@@ -26,8 +26,8 @@ import struct
 
 import numpy as np
 
-from . import golden
-from .bitstream import BitReader, BitWriter
+from . import golden, native
+from .bitstream import BitReader, BitWriter, bits_to_bytes
 from .constants import (
     AC,
     DC,
@@ -257,12 +257,21 @@ def _read_code(reader: BitReader, inverse: dict[str, object]):
     raise ValueError("invalid Huffman code")
 
 
-def decompress_to_arrays(data: bytes) -> CodecArrays:
+def decompress_to_arrays(
+    data: bytes, use_native: bool = True,
+    index_workers: int | None = None,
+) -> CodecArrays:
     """bytes -> coefficient arrays (entropy decode only).
 
-    The pure-python bit-cursor decoder: the behavioural oracle of the
-    format.  (The JAX package's optional C LUT decoder is not part of
-    the port yet; it arrives with the ``native/`` slice.)
+    Runs the C LUT decoder of ``native`` (O(1) per code via a 16-bit peek
+    table; a build that fails raises).  ``use_native=False`` runs the
+    pure-python bit cursor below instead: the behavioural oracle of the
+    format, which the tests hold the C decoder against.
+
+    index_workers: thread count for TICX index-parallel decode (None =
+    all cores).  Callers decoding MANY streams concurrently should pass
+    1 -- nesting an index pool inside a per-stream pool oversubscribes
+    the cores and measures slower than the serial cursor.
     """
     height, width, quality, flag = parse_header(data)
     reader = BitReader(data)
@@ -273,6 +282,64 @@ def decompress_to_arrays(data: bytes) -> CodecArrays:
         tables = _DEFAULT_TABLES
     scaled_dct = bool(flag & FLAG_SCALED_DCT) and not (flag & FLAG_CUSTOM_TABLE)
     nblocks = -(-height // 8) * -(-width // 8)
+
+    if use_native:
+        if flag & FLAG_CUSTOM_TABLE:
+            payload_off = reader.tell()
+            dc_lut = native.build_decode_lut(
+                {c: (int(s, 2), len(s)) for c, s in tables[DC].items()}
+            )
+            ac_lut = native.build_decode_lut(
+                {
+                    (r << 4) | sz: (int(s, 2), len(s))
+                    for (r, sz), s in tables[AC].items()
+                }
+            )
+            # custom-table payload may start off a byte boundary:
+            # realign by re-packing the remaining bits
+            idx = parse_block_index(data, nblocks)
+            if idx is not None and (
+                idx[0][-1] >= idx[2] * 8 - payload_off
+            ):
+                # parse_block_index's bound over-counts by the
+                # table-segment bits here; a trailer whose last
+                # offset lands past the TRUE payload end must
+                # degrade to the serial cursor, like any other
+                # invalid index
+                idx = None
+            if idx is not None and nblocks > idx[1]:
+                # TICX offsets are payload-relative, so the index-
+                # parallel path works unchanged on the realigned
+                # payload with the stream's own LUTs
+                chunk_off, stride, pay_end = idx
+                payload = bits_to_bytes(
+                    reader._bits[payload_off:pay_end * 8]
+                )
+                dc, ac = native.entropy_decode_indexed(
+                    payload, nblocks, chunk_off, stride,
+                    dc_lut, ac_lut, max_workers=index_workers,
+                )
+            else:
+                payload = bits_to_bytes(reader._bits[payload_off:])
+                dc, ac = native.entropy_decode(
+                    payload, nblocks, dc_lut, ac_lut
+                )
+        else:
+            idx = parse_block_index(data, nblocks)
+            if idx is not None and nblocks > idx[1]:
+                chunk_off, stride, pay_end = idx
+                dc, ac = native.entropy_decode_indexed(
+                    data[HEADER_BYTES:pay_end], nblocks,
+                    chunk_off, stride, max_workers=index_workers,
+                )
+            else:
+                dc, ac = native.entropy_decode(
+                    data[HEADER_BYTES:], nblocks
+                )
+        return CodecArrays(
+            height=height, width=width, quality=quality,
+            dc=dc, ac=ac, scaled_dct=scaled_dct,
+        )
 
     inv_dc = _invert(tables[DC])
     inv_ac = _invert(tables[AC])

@@ -2,7 +2,11 @@
 
 The counterpart of the JAX package's ``engine.Engine``.  ``compress`` runs
 the batch pipeline with B = 1, so the one-image entry point and the batch
-entry point are the same program.
+entry point are the same program.  ``compress(..., auto_table=True)`` codes
+the image with Huffman tables built for it at run time: coefficients on
+the device, histograms and tables on the host, then the same ``encode2`` +
+``place`` kernels with the new tables (or the host container when the
+tables leave the kernels' range).
 
 Decode has three legs, chosen per stream by what the *stream* is, never
 by what the device or the build did:
@@ -17,28 +21,49 @@ by what the device or the build did:
   validation (a corrupt stream) is decoded by ``container.decompress``,
   which degrades block by block as the reference does;
 - **host entropy**: streams the kernel leg cannot take (no trailer, an
-  inadmissible table, mixed batches) are entropy-decoded by the
-  pure-Python cursor of ``container`` and transformed on the device.
+  inadmissible table, an image of more than ``MAX_DECODE_BLOCKS`` blocks)
+  are entropy-decoded by the C decoder of ``native`` (through
+  ``container``), one thread a stream, and transformed on the device.
+
+A uniform batch of more than ``MAX_DECODE_BLOCKS`` blocks is decoded on
+the kernel leg in sub-batches cut at image boundaries.
 
 ``decode_stats`` counts the images each leg took in the last call.
 """
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 
 from . import container, golden
+from .bitstream import BitWriter, concat_bit_payload
 from .constants import FLAG_CUSTOM_TABLE, FLAG_SCALED_DCT, ZIGZAG_ORDER
 from .device import resolve_device
 from .golden import CodecArrays
+from .huffman import (
+    block_bit_counts, build_huffman_spec_from_counts, symbol_counts,
+)
 from .ops import transform
+from .ops.encode2 import encode2, fast_coefficients
 from .ops.entropy_decode import entropy_decode_chunks, prepare_batch
-from .pipeline import compress_batch_device
-from .tables import DecodeTables, dequant_multipliers
+from .pipeline import (
+    check_pixels, compress_batch_device, exact_coefficients, place_stream,
+)
+from .tables import CodecTables, DecodeTables, dequant_multipliers
 
 _CHUNK_KEYS = ("chunk_start", "chunk_blocks", "chunk_block_base",
                "chunk_end_lo", "chunk_end_hi")
+
+# The most blocks one decode launch takes: its coefficient output is
+# indexed in int32 (nb_total * 64 < 2**31, ops/entropy_decode.py).
+MAX_DECODE_BLOCKS = (1 << 31) // 64 - 1
+# The most bits a block may take on the encode kernels: ``encode2``'s row,
+# the ``n * 52``-word capacity retry and its ``MAX_BLOCKS`` assume it.
+KERNEL_BLOCK_BITS = 52 * 32
 
 
 def _host_decode_blocks(zz_rows: np.ndarray, quality: int,
@@ -95,16 +120,72 @@ class Engine:
         if block_index is None:
             block_index = True
         if auto_table:
-            raise NotImplementedError(
-                "dynamic Huffman tables on the device wait for the "
-                "auto-table encode slice of the port; use backend='host'"
-            )
+            return self._compress_auto_table(image, int(quality),
+                                             block_index, index_stride)
         # odd shapes are reflect-padded inside; the header keeps (H, W)
         return compress_batch_device(
             image[None], quality, precision=self.precision,
             block_index=block_index, index_stride=index_stride,
             device=self.device,
         )[0]
+
+    def _compress_auto_table(self, image: np.ndarray, quality: int,
+                             block_index: bool, index_stride: int) -> bytes:
+        """Frequency-optimal Huffman tables for this image; the bytes of
+        ``container.compress(image, quality, True, block_index=...)`` in
+        exact mode.
+
+        Coefficients on the device (exact: ``exact_transform`` + the
+        float64 recompute of flagged blocks; fast: the float32 transform
+        pass of ``encode2``), pulled once for the histograms and the
+        table (the same canonical construction as the host path).  Then, before
+        any launch, the route: the host container when the table is
+        ``extended`` or some block would take more than
+        ``KERNEL_BLOCK_BITS`` (the block rule of the JAX package,
+        ``ops/entropy.py:263-268``; its other rule, no symbol slot above
+        64 bits, does not apply: the kernel's bit sink takes the ZRL
+        prefix and the code apart), else ``encode2`` from the
+        coefficients with the new tables and ``place``."""
+        h, w = image.shape
+        padded = np.ascontiguousarray(
+            transform.pad_to_blocks(image[None].astype(np.uint8)))
+        _, h8, w8 = padded.shape
+        check_pixels(h8, w8)
+        nb = (h8 // 8) * (w8 // 8)
+        dev = self.device
+        tables = CodecTables.build(quality, dev)
+        blocks = transform.blockify(
+            torch.from_numpy(padded).to(dev)).reshape(nb, 64)
+        if self.precision == transform.EXACT:
+            zz = exact_coefficients(blocks, quality, tables)
+        else:
+            zz = fast_coefficients(blocks, tables)
+        zz_np = zz.cpu().numpy()
+        dc = np.diff(zz_np[0], prepend=np.int32(0)).astype(np.int32)
+        ac = np.ascontiguousarray(zz_np[1:].T)
+        spec = build_huffman_spec_from_counts(*symbol_counts(dc, ac))
+        arrays = CodecArrays(height=h, width=w, quality=quality, dc=dc,
+                             ac=ac)
+        if (spec.extended or int(block_bit_counts(dc, ac, spec).max())
+                > KERNEL_BLOCK_BITS):
+            return container.compress_arrays(
+                arrays, True, block_index=block_index, spec=spec,
+                index_stride=index_stride,
+            )
+        packed, meta, overflow = encode2(
+            zz, CodecTables.from_spec(spec, quality, dev), nb, from_zz=True)
+        payload, _, total = place_stream(packed, meta, overflow, nb,
+                                         -(-h8 * w8 * 4 // 32))
+        writer = BitWriter()
+        writer.write_bytes(container.make_header(arrays, custom_table=True))
+        container.write_huffman_table(writer, spec.string_tables())
+        data = concat_bit_payload(writer.to_bytes(), writer.bit_length(),
+                                  payload, total)
+        if block_index:
+            # payload-relative offsets: the image starts at bit 0
+            data += container.make_block_index(
+                meta[0].cpu().numpy().astype(np.int64), stride=index_stride)
+        return data
 
     # -- decode ----------------------------------------------------------
     def _pixels(self, zz: torch.Tensor, h: int, w: int, quality: int,
@@ -133,11 +214,25 @@ class Engine:
     def _decompress_batch_device(self, streams: list[bytes]):
         """Uniform TICX streams -> (B, H, W) uint8 with the entropy stage
         on the device, or ``None`` when the batch is not eligible
-        (``prepare_batch``).  Images with a chunk that fails validation
-        are decoded by the host decoder."""
-        prep = prepare_batch(streams)
-        if prep is None:
+        (``prepare_batch``, or an image of more than ``MAX_DECODE_BLOCKS``
+        blocks).  A batch of more blocks than that is decoded in
+        sub-batches cut at image boundaries.  Images with a chunk that
+        fails validation are decoded by the host decoder."""
+        h, w, _, _ = container.parse_header(streams[0])
+        per = MAX_DECODE_BLOCKS // (-(-h // 8) * -(-w // 8))
+        if per < 1:
             return None
+        preps = [prepare_batch(streams[i:i + per])
+                 for i in range(0, len(streams), per)]
+        if any(p is None for p in preps):
+            return None
+        return np.concatenate([
+            self._decode_prepared(prep, streams[k * per:(k + 1) * per])
+            for k, prep in enumerate(preps)
+        ])
+
+    def _decode_prepared(self, prep: dict, streams: list[bytes]):
+        """One ``prepare_batch`` result -> (B, H, W) uint8."""
         dev = self.device
         h, w, quality = prep["shape"]
         scaled = bool(prep["scaled_dct"])
@@ -193,7 +288,17 @@ class Engine:
             out = self._decompress_batch_device(streams)
             if out is not None:
                 return out
-        arrays = [container.decompress_to_arrays(d) for d in streams]
+        if len(streams) > 1:
+            # one C decode a stream, concurrently (the ctypes call releases
+            # the GIL); no TICX threads inside them, which would
+            # oversubscribe the cores
+            workers = min(len(streams), os.cpu_count() or 1)
+            with ThreadPoolExecutor(workers) as pool:
+                arrays = list(pool.map(
+                    lambda d: container.decompress_to_arrays(
+                        d, index_workers=1), streams))
+        else:
+            arrays = [container.decompress_to_arrays(streams[0])]
         self.decode_stats["host_entropy"] += len(streams)
         return self._decode_uniform_arrays(arrays)
 

@@ -151,6 +151,20 @@ class HuffmanSpec:
         )
 
 
+def ac_symbols(ac: np.ndarray):
+    """(n, 63) zig-zag AC rows -> (nonzero mask, zeros since the previous
+    nonzero coefficient (valid where nonzero), size) arrays."""
+    n = ac.shape[0]
+    nz = ac != 0
+    pos = np.arange(63, dtype=np.int64)
+    marked = np.where(nz, pos, np.int64(-1))
+    prev = np.maximum.accumulate(marked, axis=1)
+    prev = np.concatenate(
+        [np.full((n, 1), -1, np.int64), prev[:, :-1]], axis=1
+    )
+    return nz, pos - prev - 1, bits_required(ac)
+
+
 def symbol_counts(dc: np.ndarray, ac: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """Vectorized symbol histograms over all blocks.
 
@@ -172,15 +186,7 @@ def symbol_counts(dc: np.ndarray, ac: np.ndarray) -> tuple[np.ndarray, np.ndarra
     dc_counts = np.bincount(dc_cats, minlength=DC_CATS)[:DC_CATS]
     ac = np.asarray(ac).reshape(-1, 63)
     n = ac.shape[0]
-    nz = ac != 0
-    pos = np.arange(63, dtype=np.int64)
-    marked = np.where(nz, pos, np.int64(-1))
-    prev = np.maximum.accumulate(marked, axis=1)
-    prev = np.concatenate(
-        [np.full((n, 1), -1, np.int64), prev[:, :-1]], axis=1
-    )
-    run = pos - prev - 1  # zeros since previous nonzero (valid where nz)
-    size = bits_required(ac)
+    nz, run, size = ac_symbols(ac)
     if nz.any() and int(size[nz].max()) >= AC_SIZES:
         raise ValueError(
             "AC coefficient magnitude exceeds the dynamic-table range"
@@ -220,19 +226,39 @@ def build_huffman_spec_from_counts(
         for size in range(AC_SIZES)
         if ac_counts[run * AC_SIZES + size]
     }
-    dc_lengths = _huffman_code_lengths(dc_freqs)
-    ac_lengths = _huffman_code_lengths(ac_freqs)
-    dc_codes = _canonical_codes(dc_lengths)
-    ac_codes = _canonical_codes(ac_lengths)
+    return spec_from_lengths(_huffman_code_lengths(dc_freqs),
+                             _huffman_code_lengths(ac_freqs))
 
+
+def spec_from_lengths(dc_lengths: dict, ac_lengths: dict) -> HuffmanSpec:
+    """Code lengths (DC category -> length, (run, size) -> length) ->
+    the canonical tables with those lengths."""
     dc_code = np.zeros(DC_CATS, dtype=np.uint32)
     dc_len = np.zeros(DC_CATS, dtype=np.int32)
-    for sym, (c, l) in dc_codes.items():
+    for sym, (c, l) in _canonical_codes(dc_lengths).items():
         dc_code[sym] = c
         dc_len[sym] = l
     ac_code = np.zeros((16, AC_SIZES), dtype=np.uint32)
     ac_len = np.zeros((16, AC_SIZES), dtype=np.int32)
-    for (run, size), (c, l) in ac_codes.items():
+    for (run, size), (c, l) in _canonical_codes(ac_lengths).items():
         ac_code[run, size] = c
         ac_len[run, size] = l
     return HuffmanSpec(dc_code, dc_len, ac_code, ac_len)
+
+
+def block_bit_counts(dc: np.ndarray, ac: np.ndarray,
+                     spec: HuffmanSpec) -> np.ndarray:
+    """Bits each block takes when coded with ``spec`` (DPCM'd ``dc`` (n,),
+    zig-zag ``ac`` (n, 63)): DC code + magnitude, for every nonzero AC
+    coefficient its ZRL prefixes, (run, size) code and magnitude, and the
+    EOB code.  Every symbol the blocks use must have a code in ``spec``."""
+    dc = np.asarray(dc).reshape(-1)
+    ac = np.asarray(ac).reshape(-1, 63)
+    cat = bits_required(dc).astype(np.int64)
+    nz, run, size = ac_symbols(ac)
+    size = size.astype(np.int64)
+    ac_len = spec.ac_len.astype(np.int64)
+    per_coef = ((run >> 4) * ac_len[15, 0]
+                + ac_len[run & 15, np.minimum(size, AC_SIZES - 1)] + size)
+    return (spec.dc_len.astype(np.int64)[cat] + cat
+            + np.where(nz, per_coef, 0).sum(axis=1) + ac_len[0, 0])

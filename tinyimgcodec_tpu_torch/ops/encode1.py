@@ -65,11 +65,8 @@ def encode1_plain(x: torch.Tensor, tables: CodecTables, nb: int,
     """Plain PyTorch version (any device) of :func:`encode1`."""
     _check(x, tables, nb, from_zz)
     zz = x.T if from_zz else fast_coefficients_plain(x, tables)
-    sw0, sw1, soff, blk_bits, over = block_slots(
-        zz.to(torch.int64), tables, nb
-    )
-    words = pack_slots(sw0, sw1, soff, torch.zeros_like(blk_bits),
-                       BLOCK_WORDS)
+    sw, soff, blk_bits, over = block_slots(zz.to(torch.int64), tables, nb)
+    words = pack_slots(sw, soff, torch.zeros_like(blk_bits), BLOCK_WORDS)
     return words, blk_bits.to(torch.int32), over
 
 

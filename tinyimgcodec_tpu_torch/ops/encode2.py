@@ -17,8 +17,9 @@ Output, the interface of the JAX package's ``encode_pallas2``:
 
 Per block: DC DPCM against the previous block (reset at each image's
 first block), DC category code + magnitude bits; for every nonzero AC
-coefficient up to three 11-bit ZRL prefixes, the (run, size) code and the
-magnitude bits; EOB always.
+coefficient up to three ZRL codes (a run of 16 zeros each), the (run,
+size) code and the magnitude bits; EOB always.  The tables are arguments:
+the standard ones, or ones built at run time (codes of up to 16 bits).
 
 Replaces ``tinyimgcodec_tpu/ops/pallas_encode2.py`` (``_make_kernel``).
 On the card: ``csrc/encode2.cu``, one launch.  From coefficients its bound
@@ -94,11 +95,13 @@ def fast_coefficients_plain(pixels: torch.Tensor,
 def block_slots(zz: torch.Tensor, tables: CodecTables, nb: int):
     """Symbols of every block as 65 slots (DC, 63 AC positions, EOB).
 
-    ``zz`` (64, N) int64 coefficients.  Returns ``(sw0, sw1, soff,
-    blk_bits, over)``: each slot's bits left-aligned in two 32-bit words
-    (65, N) (an empty slot is zero), its exclusive bit offset inside the
-    block (65, N), the block's bit count (N,) and the table-range flag.
-    Shared by the plain versions of both encode kernels."""
+    ``zz`` (64, N) int64 coefficients.  Returns ``(sw, soff, blk_bits,
+    over)``: each slot's bits left-aligned in three 32-bit words ``sw``
+    (3, 65, N) (an empty slot is zero; a slot holds up to three 16-bit ZRL
+    codes and a 26-bit code + magnitude, 74 bits), its exclusive bit
+    offset inside the block (65, N), the block's bit count (N,) and the
+    table-range flag.  Shared by the plain versions of both encode
+    kernels."""
     n = zz.shape[1]
     dev = zz.device
     dc_comb = tables.dc_comb.to(torch.int64) & _M32
@@ -117,7 +120,7 @@ def block_slots(zz: torch.Tensor, tables: CodecTables, nb: int):
     cat = cat.clamp(max=11)
     comb = dc_comb[cat]
     val = ((comb >> 8) << cat) | _magnitude(diff, cat)
-    dc_bits = (comb & 0xFF) + cat  # in [2, 20]
+    dc_bits = (comb & 0xFF) + cat  # at most 16 + 11
     dc_w0 = (val << (32 - dc_bits)) & _M32
 
     # ---- AC slots ---------------------------------------------------------
@@ -136,19 +139,19 @@ def block_slots(zz: torch.Tensor, tables: CodecTables, nb: int):
     size = size.clamp(max=10)
     z = (run >> 4).clamp(0, 3)
     comb = ac_comb[((run & 15) * 11 + size).clamp(0, 175)]
-    val = ((comb >> 8) << size) | _magnitude(ac, size)
+    val = ((comb >> 8) << size) | _magnitude(ac, size)  # <= 26 bits
     zrl_len = ac_comb[15 * 11] & 0xFF
-    end = z * zrl_len + (comb & 0xFF) + size  # <= 59
-    e2 = end - 32
-    in_w0 = torch.where(
-        e2 <= 0, (val << (32 - end).clamp(0, 31)) & _M32,
-        val >> e2.clamp(0, 31),
-    )
-    in_w1 = torch.where(
-        e2 <= 0, torch.zeros_like(val), (val << (32 - e2).clamp(0, 31)) & _M32
-    )
-    ac_w0 = (zhi[z] | in_w0) * nz
-    ac_w1 = (zlo[z] | in_w1) * nz
+    end = z * zrl_len + (comb & 0xFF) + size  # <= 3 * 16 + 26
+    # word j of the slot holds its bits [32j, 32j + 32): the value's part
+    # there, right-aligned to the word's end, then the ZRL prefix's words
+    ac_w = []
+    for j in range(3):
+        r = end - 32 * (j + 1)  # how far the value ends past word j
+        ac_w.append(torch.where(r >= 0, val >> r.clamp(0, 63),
+                                val << (-r).clamp(0, 32)) & _M32)
+    ac_w[0] = (ac_w[0] | zhi[z]) * nz
+    ac_w[1] = (ac_w[1] | zlo[z]) * nz
+    ac_w[2] = ac_w[2] * nz
     ac_bits = end * nz
 
     # ---- slots -> block-local bit offsets ---------------------------------
@@ -156,30 +159,35 @@ def block_slots(zz: torch.Tensor, tables: CodecTables, nb: int):
     eob_len = eob & 0xFF
     eob_w0 = ((eob >> 8) << (32 - eob_len)) & _M32
     zero = torch.zeros((1, n), dtype=torch.int64, device=dev)
-    sw0 = torch.cat([dc_w0.reshape(1, n), ac_w0, zero + eob_w0])
-    sw1 = torch.cat([zero, ac_w1, zero])
+    sw = torch.stack([
+        torch.cat([dc_w0.reshape(1, n), ac_w[0], zero + eob_w0]),
+        torch.cat([zero, ac_w[1], zero]),
+        torch.cat([zero, ac_w[2], zero]),
+    ])
     slen = torch.cat([dc_bits.reshape(1, n), ac_bits, zero + eob_len])
     csum = torch.cumsum(slen, dim=0)
-    return sw0, sw1, csum - slen, csum[-1], over
+    return sw, csum - slen, csum[-1], over
 
 
-def pack_slots(sw0: torch.Tensor, sw1: torch.Tensor, soff: torch.Tensor,
-               phase: torch.Tensor, row_words: int) -> torch.Tensor:
+def pack_slots(sw: torch.Tensor, soff: torch.Tensor, phase: torch.Tensor,
+               row_words: int) -> torch.Tensor:
     """Place every slot of :func:`block_slots` at bit ``phase + soff`` of
     its block's row: (N, row_words) int32 bit patterns."""
-    n = sw0.shape[1]
+    k, _, n = sw.shape
     so = soff + phase.reshape(1, n)
     sh = so & 31
     has = sh > 0
     nsh = (32 - sh) & 31
-    c0 = sw0 >> sh
-    c1 = (((sw0 << nsh) & _M32) * has) | (sw1 >> sh)
-    c2 = ((sw1 << nsh) & _M32) * has
+    # the slot's k words shifted right by sh spread over k + 1 words
+    parts = [sw[0] >> sh]
+    for i in range(1, k):
+        parts.append((((sw[i - 1] << nsh) & _M32) * has) | (sw[i] >> sh))
+    parts.append(((sw[k - 1] << nsh) & _M32) * has)
     tgt = (so >> 5).T.contiguous()  # (N, 65)
-    rows = torch.zeros((n, row_words + 2), dtype=torch.int64,
-                       device=sw0.device)
-    for k, c in enumerate((c0, c1, c2)):  # disjoint bits: ADD == OR
-        rows.scatter_add_(1, tgt + k, c.T.contiguous())
+    rows = torch.zeros((n, row_words + k + 1), dtype=torch.int64,
+                       device=sw.device)
+    for i, c in enumerate(parts):  # disjoint bits: ADD == OR
+        rows.scatter_add_(1, tgt + i, c.T.contiguous())
     return _as_i32(rows[:, :row_words].contiguous())
 
 
@@ -205,9 +213,9 @@ def encode2_plain(x: torch.Tensor, tables: CodecTables, nb: int,
     """Plain PyTorch version (any device) of :func:`encode2`."""
     _check(x, tables, nb, from_zz)
     zz = (x if from_zz else fast_coefficients_plain(x, tables)).to(torch.int64)
-    sw0, sw1, soff, blk_bits, over = block_slots(zz, tables, nb)
+    sw, soff, blk_bits, over = block_slots(zz, tables, nb)
     off, _, _ = image_offsets(blk_bits, nb)
-    packed = pack_slots(sw0, sw1, soff, off & 31, ROW_WORDS)
+    packed = pack_slots(sw, soff, off & 31, ROW_WORDS)
     meta = torch.stack([off, blk_bits]).to(torch.int32)
     return packed, meta, over
 

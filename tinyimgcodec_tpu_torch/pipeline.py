@@ -43,9 +43,10 @@ from .ops.place import place
 from .ops.stitch import stitch
 from .tables import CodecTables
 
-# Batches above this many pixels are not taken: block bit offsets are
-# int32 (safe up to ~82 MP of worst-case content) and the JAX package
-# routes such input to its tiled path, which is not ported yet.
+# One call of the kernels takes at most this many pixels: block bit
+# offsets are int32 (safe up to ~82 MP of worst-case content).  A larger
+# batch is cut into calls of whole images; a larger image waits for the
+# tiled path of the JAX package, which is not ported yet.
 MAX_PIXELS = 16 << 20
 
 
@@ -73,6 +74,55 @@ def exact_coefficients(blocks: torch.Tensor, quality: int,
         fixed = _host_zz64(pix, quality).astype(np.int32)
         zz[:, idx] = torch.from_numpy(fixed.T.copy()).to(zz.device)
     return zz
+
+
+def check_pixels(h: int, w: int) -> None:
+    """Refuse an image of more than ``MAX_PIXELS`` pixels (block-aligned)."""
+    if h * w > MAX_PIXELS:
+        raise NotImplementedError(
+            f"an image of {h * w} pixels exceeds the {MAX_PIXELS}-pixel "
+            "limit of this encode path; larger images wait for the "
+            "tiled slice of the port (parallel/tiled)"
+        )
+
+
+def _pull_stream(launch, overflow: torch.Tensor, n: int, cap_words: int):
+    """Run the stream assembly ``launch(cap) -> (stream, starts, total,
+    status)`` (status bit 2: the stream passed ``cap`` words) at
+    ``cap_words``, once more at ``n * 52`` words (the worst case) if that
+    was too small, and pull the result: (big-endian stream bytes up to the
+    total's last byte, image starts (B,) int64, total bits).  Raises
+    ``ValueError`` when ``overflow`` says a coefficient lies outside the
+    Huffman tables."""
+
+    def run(cap):
+        stream, starts, total, status = launch(cap)
+        status = status.to(torch.int64) + overflow.to(torch.int64) * 4
+        head = torch.stack([status, total.to(torch.int64)]).cpu()  # sync
+        return stream, starts, int(head[1]), int(head[0])
+
+    stream, starts, total, status = run(max(cap_words, 1))
+    if status & 4:
+        raise ValueError("coefficient out of Huffman table range")
+    if status & 2:
+        stream, starts, total, status = run(n * 52)
+        if status & 2:
+            raise ValueError("stream capacity overflow (worst case!)")
+    raw = stream[: -(-total // 32)].cpu().numpy().view(np.uint32)
+    return (raw.astype(">u4").tobytes()[: -(-total // 8)],
+            starts.cpu().numpy().astype(np.int64), total)
+
+
+def place_stream(packed: torch.Tensor, meta: torch.Tensor,
+                 overflow: torch.Tensor, nb: int, cap_words: int):
+    """``encode2``'s outputs -> the stream through ``place``, as
+    :func:`_pull_stream` returns it."""
+
+    def launch(cap):
+        stream, starts, total, cap_over = place(packed, meta, nb, cap)
+        return stream, starts, total, cap_over.to(torch.int64) * 2
+
+    return _pull_stream(launch, overflow, packed.shape[0], cap_words)
 
 
 def compress_batch_device(
@@ -115,7 +165,6 @@ def compress_batch_device(
                 "with ops.transform.pad_to_blocks or pass a numpy array"
             )
         th, tw = true_shape if true_shape is not None else (h, w)
-        dev_images = images.to(dev)
     else:
         images = np.ascontiguousarray(np.asarray(images), dtype=np.uint8)
         if images.ndim != 3:
@@ -123,24 +172,32 @@ def compress_batch_device(
         b, th, tw = images.shape
         if true_shape is not None:
             th, tw = true_shape
-        images = transform.pad_to_blocks(images)
+        images = np.ascontiguousarray(transform.pad_to_blocks(images))
         b, h, w = images.shape
-        dev_images = torch.from_numpy(np.ascontiguousarray(images)).to(dev)
     if b < 1 or h < 8 or w < 8:
         raise ValueError(f"empty batch or image ({b}x{h}x{w})")
-    if b * h * w > MAX_PIXELS:
-        raise NotImplementedError(
-            f"batch of {b * h * w} pixels exceeds the {MAX_PIXELS}-pixel "
-            "limit of this encode path; larger input waits for the "
-            "tiled/sharded slice of the port (parallel/)"
-        )
+    check_pixels(h, w)
+    per = MAX_PIXELS // (h * w)
+    if b > per:
+        # images are self-contained streams: calls of at most ``per``
+        # images each give the same bytes as one call would
+        return [
+            data for i in range(0, b, per)
+            for data in compress_batch_device(
+                images[i:i + per], quality, bits_per_pixel_budget,
+                precision=precision, block_index=block_index,
+                index_stride=index_stride, true_shape=(th, tw), device=dev,
+                version=version)
+        ]
     quality = int(quality)
     nb = (h // 8) * (w // 8)
     n = b * nb
     cap_words = -(-int(b * h * w * bits_per_pixel_budget) // 32)
 
+    if isinstance(images, np.ndarray):
+        images = torch.from_numpy(images)
     tables = CodecTables.build(quality, dev)
-    blocks = transform.blockify(dev_images).reshape(n, 64)
+    blocks = transform.blockify(images.to(dev)).reshape(n, 64)
     meta = None
     if precision == transform.EXACT:
         zz = exact_coefficients(blocks, quality, tables)
@@ -150,41 +207,23 @@ def compress_batch_device(
     else:
         words, bits, overflow = encode1(blocks, tables, nb)
 
-    def run(cap):
-        if meta is not None:
-            stream, starts, total, cap_over = place(packed, meta, nb, cap)
-            status = cap_over.to(torch.int64) * 2
-        else:
-            stream, starts, total, status = stitch(words, bits, nb, cap)
-        status = status.to(torch.int64) + overflow.to(torch.int64) * 4
-        head = torch.stack([status, total.to(torch.int64)]).cpu()  # sync
-        return stream, starts, int(head[1]), int(head[0])
-
-    stream, starts, total, status = run(max(cap_words, 1))
-    if status & (2 | 4):
-        if status & 4:
-            raise ValueError("coefficient out of Huffman table range")
-        # capacity overflow: retry once with the worst case
-        stream, starts, total, status = run(n * 52)
-        if status & 2:
-            raise ValueError("stream capacity overflow (worst case!)")
-
     header = container.make_header(
         CodecArrays(
             height=th, width=tw, quality=quality,
             dc=np.empty(0, np.int32), ac=np.empty((0, 63), np.int32),
         )
     )
-    nwords = -(-total // 32)
-    raw = (
-        stream[:nwords].cpu().numpy().view(np.uint32).astype(">u4").tobytes()
-    )
-    starts = starts.cpu().numpy().astype(np.int64)
+    if meta is not None:
+        raw, starts, total = place_stream(packed, meta, overflow, nb,
+                                          cap_words)
+    else:
+        raw, starts, total = _pull_stream(
+            lambda cap: stitch(words, bits, nb, cap), overflow, n, cap_words)
     off_all = meta[0].cpu().numpy().astype(np.int64) if block_index else None
     out = []
     for i in range(b):
         s = int(starts[i]) // 8
-        e = int(starts[i + 1]) // 8 if i + 1 < b else -(-total // 8)
+        e = int(starts[i + 1]) // 8 if i + 1 < b else len(raw)
         data = header + raw[s:e]
         if off_all is not None:
             data += container.make_block_index(

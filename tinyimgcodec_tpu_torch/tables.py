@@ -13,10 +13,11 @@ The codec has no weights.  What a decode needs besides the stream is
   left-aligned in two 32-bit words.
 
 :meth:`CodecTables.build` makes them from this package's own
-``constants``; :meth:`CodecTables.from_numpy` takes them as numpy arrays
-from anywhere else (the tests hand over the JAX package's arrays to show
-that both give the same bits).  The kernels take every table as a tensor
-argument, so a later slice can pass tables built at run time.
+``constants``; :meth:`CodecTables.from_spec` puts in the Huffman codes of
+a table built at run time (auto-table encode); :meth:`CodecTables.from_numpy`
+takes them as numpy arrays from anywhere else (the tests hand over the JAX
+package's arrays to show that both give the same bits).  The kernels take
+every table as a tensor argument.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 
 from . import constants as C
 from .constants import AAN_SCALES, ZIGZAG_ORDER, quant_divisors
+from .huffman import HuffmanSpec
 
 
 @functools.cache
@@ -55,25 +57,34 @@ def fast_encode_matrix(quality: int) -> tuple[np.ndarray, np.ndarray]:
     return m.astype(np.float32), offset.astype(np.float32)
 
 
-@functools.cache
-def symbol_tables() -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-    """(dc_comb (12,), ac_comb (176,), zrl_hi (4,), zrl_lo (4,)) uint32."""
-    dc_comb = (C.DC_CODE.astype(np.uint64) << 8) | C.DC_CODELEN.astype(
-        np.uint64
-    )
-    ac_comb = (
-        C.AC_CODE.reshape(-1).astype(np.uint64) << 8
-    ) | C.AC_CODELEN.reshape(-1).astype(np.uint64)
+def symbol_words(dc_code, dc_len, ac_code, ac_len):
+    """Huffman codes and lengths -> ``(dc_comb (12,), ac_comb (176,),
+    zrl_hi (4,), zrl_lo (4,))`` uint32: ``code << 8 | length`` for the 12
+    DC categories and the 16 x 11 AC (run, size) pairs, and the z-fold
+    prefix of the table's own ZRL code (run 15, size 0) left-aligned in
+    two words for z = 0..3 (zero where the table has no ZRL code)."""
+    dc_comb = (np.asarray(dc_code, np.uint64).reshape(12) << 8) | np.asarray(
+        dc_len, np.uint64).reshape(12)
+    ac_code = np.asarray(ac_code, np.uint64).reshape(16, 11)
+    ac_len = np.asarray(ac_len, np.uint64).reshape(16, 11)
+    ac_comb = (ac_code.reshape(-1) << 8) | ac_len.reshape(-1)
+    zcode, zlen = int(ac_code[15, 0]), int(ac_len[15, 0])
     zrl_hi = np.zeros(4, np.uint32)
     zrl_lo = np.zeros(4, np.uint32)
     for z in range(1, 4):
         v = 0
         for _ in range(z):
-            v = (v << C.ZRL_LEN) | C.ZRL_CODE
-        v64 = v << (64 - C.ZRL_LEN * z)
+            v = (v << zlen) | zcode
+        v64 = v << (64 - zlen * z)
         zrl_hi[z] = v64 >> 32
         zrl_lo[z] = v64 & 0xFFFFFFFF
     return dc_comb.astype(np.uint32), ac_comb.astype(np.uint32), zrl_hi, zrl_lo
+
+
+@functools.cache
+def symbol_tables() -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """:func:`symbol_words` of the standard (Annex K) tables."""
+    return symbol_words(C.DC_CODE, C.DC_CODELEN, C.AC_CODE, C.AC_CODELEN)
 
 
 def _bits_i32(a: np.ndarray) -> np.ndarray:
@@ -129,17 +140,37 @@ class CodecTables:
               device: str | torch.device = "cpu") -> "CodecTables":
         return _build_cached(int(quality), str(torch.device(device)))
 
+    @classmethod
+    def from_spec(cls, spec, quality: int,
+                  device: str | torch.device = "cpu") -> "CodecTables":
+        """The tables of ``quality`` with the Huffman codes of ``spec``, a
+        run-time table: a ``huffman.HuffmanSpec`` (refused when it is
+        ``extended``: the kernels' symbols stop at DC category 11 and AC
+        size 10) or the four arrays of its ``device_tables()``."""
+        if isinstance(spec, HuffmanSpec):
+            if spec.extended:
+                raise ValueError("an extended Huffman table has symbols "
+                                 "outside the kernels' range")
+            spec = spec.device_tables()
+        return _with_symbols(int(quality), symbol_words(*spec),
+                             str(torch.device(device)))
 
-@functools.lru_cache(maxsize=64)
-def _build_cached(quality: int, device: str) -> CodecTables:
+
+def _with_symbols(quality: int, words: tuple, device: str) -> CodecTables:
+    """The tables of ``quality`` with the symbol words ``words``
+    (:func:`symbol_words`)."""
     m, off = fast_encode_matrix(quality)
     if np.any(off[1:] != 0.0):  # only the DC column has a basis sum
         raise ValueError("fast transform offset outside the DC column")
-    dc_comb, ac_comb, zrl_hi, zrl_lo = symbol_tables()
     return CodecTables.from_numpy(
-        m, off[0], dct_basis(), 1.0 / quant_divisors(quality),
-        dc_comb, ac_comb, zrl_hi, zrl_lo, device=device,
+        m, off[0], dct_basis(), 1.0 / quant_divisors(quality), *words,
+        device=device,
     )
+
+
+@functools.lru_cache(maxsize=64)
+def _build_cached(quality: int, device: str) -> CodecTables:
+    return _with_symbols(quality, symbol_tables(), device)
 
 
 # ---------------------------------------------------------------- decode
