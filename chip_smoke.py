@@ -26,7 +26,16 @@ images, streams denser than the staged window, corrupt chunk arrays,
 blocks of a few bits, capacities that cut a block or dwarf the stream,
 misaligned tensors), and ``encode2`` also on Huffman tables built at run
 time, hand-made ones with 16-bit codes and ZRL prefixes of 32 and 48 bits
-included.
+included, and with a DC predictor carried into each image's first block.
+
+The ``parallel`` slice: one 7680x4320 image (past the 16 Mi pixels of one
+kernel call, so encoded in two block ranges) through ``compress``,
+``decompress`` and ``parallel.tiled.encode_tiled``, a 4096x4104 image with
+auto tables, both against the oracle (phase ``tiled``); the tiled encode,
+``compress_batch_sharded`` and ``decompress_batch_sharded`` in two gloo
+ranks on the one card and in NCCL at a world of one, each rank a process
+of ``parallel.mesh.spawn`` (phase ``sharded``); ``compress_stream`` and
+``decompress_stream`` over the corpus (phase ``stream``).
 
 Output: one JSON object per phase, then the ``{"kernels": [...]}`` line,
 the card's name and power limit as ``nvidia-smi`` prints them, and as the
@@ -101,6 +110,10 @@ from tinyimgcodec_tpu_torch.metrics import psnr  # noqa: E402
 from tinyimgcodec_tpu_torch.ops import (  # noqa: E402
     _build, encode1, encode2, entropy_decode, exact_transform, place, stitch,
     transform,
+)
+from tinyimgcodec_tpu_torch import pipeline  # noqa: E402
+from tinyimgcodec_tpu_torch.parallel import (  # noqa: E402
+    batch as pbatch, make_mesh, spawn, stream as pstream, tiled,
 )
 from tinyimgcodec_tpu_torch.pipeline import (  # noqa: E402
     _host_zz64, compress_batch_device, exact_coefficients,
@@ -486,12 +499,12 @@ def worst_case_coefficients(rng, n: int) -> np.ndarray:
 
 
 def encode2_both(label: str, zz: torch.Tensor, tables: CodecTables,
-                 nb: int) -> tuple:
+                 nb: int, dc_init: torch.Tensor | None = None) -> tuple:
     """``encode2`` from coefficients by the kernel and by the plain
     version: (the kernel's outputs, the largest |kernel - plain| over rows
     and meta).  Fails the run unless rows, meta and flag are equal."""
-    a = encode2.encode2(zz, tables, nb, from_zz=True)
-    b = encode2.encode2_plain(zz, tables, nb, from_zz=True)
+    a = encode2.encode2(zz, tables, nb, from_zz=True, dc_init=dc_init)
+    b = encode2.encode2_plain(zz, tables, nb, from_zz=True, dc_init=dc_init)
     sync()
     if not (eq(a[0], b[0]) and eq(a[1], b[1]) and bool(a[2]) == bool(b[2])):
         fail(f"encode2[{label}]: kernel and plain version differ (rows "
@@ -547,6 +560,56 @@ def phase_encode2_shapes(corpus: np.ndarray) -> tuple[int, dict]:
     # nb = 300: a ragged third tile, every row piece on 16 bytes
     tables, _, zz, nb = both_forms("3 x 120x160, nb 300",
                                    synthetic_corpus(3, 160)[:, :120], 50)
+    # a DC predictor carried into every image's first block, both input
+    # forms: 0 and +-1, values near +-2047, a difference of category 11,
+    # and one that leaves the table (the flag must read alike)
+    carried = []
+    for label, images, quality in (
+            ("3 x 136x152 noise", noise(3, 136, 152), 90),
+            ("3 x 120x160", synthetic_corpus(3, 160)[:, :120], 50)):
+        tables_c, blocks_c, zz_c = coefficients(images, quality)
+        nb_c = blocks_c.shape[0] // 3
+        zzf_c = encode2.fast_coefficients(blocks_c, tables_c)
+        base = encode2.encode2(zz_c, tables_c, nb_c, from_zz=True)
+        for form, coef in (("coefficients", zz_c), ("pixels", zzf_c)):
+            first = coef[0, ::nb_c].to(torch.int64)
+            sign = torch.where(first >= 0, 1, -1)
+            for name, init in (
+                    ("0, 1, -1", torch.tensor([0, 1, -1])),
+                    ("2047, -2047, 2046", torch.tensor([2047, -2047, 2046])),
+                    ("difference of category 11", first - 1500 * sign),
+                    ("difference of 12 bits", first - 2100 * sign)):
+                d = init.to(device=DEV, dtype=torch.int32)
+                case = f"encode2[{label}, {form}, dc_init {name}]"
+                if form == "coefficients":
+                    (_, _, over), err = encode2_both(case, zz_c, tables_c,
+                                                     nb_c, d)
+                    worst = max(worst, err)
+                else:
+                    pk = encode2.encode2(blocks_c, tables_c, nb_c, dc_init=d)
+                    pp = encode2.encode2_plain(zzf_c, tables_c, nb_c,
+                                               from_zz=True, dc_init=d)
+                    sync()
+                    if not (eq(pk[0], pp[0]) and eq(pk[1], pp[1])
+                            and bool(pk[2]) == bool(pp[2])):
+                        fail(f"{case}: words differ from the plain coding "
+                             "of the kernel's own coefficients")
+                    over = pk[2]
+                # near +-2047 the difference may pass 11 bits or not: the
+                # two versions only have to agree
+                want = {"difference of 12 bits": True,
+                        "2047, -2047, 2046": None}.get(name, False)
+                if want is not None and bool(over) != want:
+                    fail(f"{case}: overflow flag {bool(over)}")
+                carried.append({"case": f"{label}, {form}",
+                                "dc_init": d.tolist(),
+                                "overflow": bool(over)})
+        zero = encode2.encode2(zz_c, tables_c, nb_c, from_zz=True,
+                               dc_init=torch.zeros(3, dtype=torch.int32,
+                                                   device=DEV))
+        if not (eq(zero[0], base[0]) and eq(zero[1], base[1])):
+            fail(f"encode2[{label}]: dc_init of zeros differs from none")
+    report.append({"case": "carried DC predictor", "checked": carried})
     # the same coefficients one word off 16-byte alignment
     buf = torch.empty(zz.numel() + 1, dtype=torch.int32, device=DEV)
     shifted = buf[1:].view(zz.shape)
@@ -1670,6 +1733,388 @@ def phase_auto_table(corpus: np.ndarray) -> tuple[dict, int, list]:
     return per_path, worst, streams
 
 
+def seeded_image(h: int, w: int, seed: int) -> np.ndarray:
+    """An (h, w) uint8 image made from a seed as the corpus images are:
+    waves, a checker of random cells and noise (float32 throughout)."""
+    rng = np.random.default_rng(seed)
+    y = np.arange(h, dtype=np.float32)[:, None]
+    x = np.arange(w, dtype=np.float32)[None, :]
+    fx, fy = rng.uniform(8, 30, 2)
+    img = (110.0 + 70.0 * np.sin(2 * np.pi * (fx * x / w + rng.random()))
+           * np.cos(2 * np.pi * (fy * y / h + rng.random()))
+           ).astype(np.float32)
+    img += 30.0 * ((x // rng.integers(20, 60) + y // rng.integers(20, 60))
+                   % 2)
+    img += rng.standard_normal((h, w), dtype=np.float32) * 5.0
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host milliseconds of ``fn()`` between synchronisations,
+    after one warm call."""
+    times = []
+    for _ in range(reps + 1):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[1:]))
+
+
+def tiled_launches(k: int, exact: bool) -> dict:
+    """What an image of ``k`` block ranges launches: per range the
+    coefficients (``exact_transform``, or the fast transform pass, which
+    is not among the counts), ``encode2`` from them, ``place`` once or
+    twice."""
+    want = {"encode2_zz": (k,), "place": tuple(range(k, 2 * k + 1))}
+    if exact:
+        want["exact_transform"] = (k,)
+    return want
+
+
+def encode_stages(img: np.ndarray, reps: int) -> dict:
+    """Where an exact encode of one image through block ranges spends its
+    time: each stage alone, host clock around a synchronised call."""
+    nb = (img.shape[0] // 8) * (img.shape[1] // 8)
+    tables = CodecTables.build(50, DEV)
+    ranges = tiled.sub_ranges(0, nb)
+
+    def upload():
+        return [tiled.range_blocks(img, a, b, DEV) for a, b in ranges]
+
+    blocks = upload()
+    zz_list = [exact_coefficients(bl, 50, tables) for bl in blocks]
+    flagged = sum(int(exact_transform.exact_transform(bl, tables)[1].sum())
+                  for bl in blocks)
+    segments, offsets, _ = tiled.encode_ranges(zz_list, tables, None, 4.0,
+                                               with_offsets=True)
+
+    def concat():
+        words, bits = tiled.concat_bits(
+            [(w.cpu(), b) for w, b in segments], torch.device("cpu"))
+        return pipeline.stream_bytes(words, bits)
+
+    return {
+        "upload_and_blockify_ms": host_ms(upload, reps),
+        "exact_transform_ms": host_ms(lambda: [
+            exact_transform.exact_transform(bl, tables) for bl in blocks],
+            reps),
+        "exact_coefficients_ms": host_ms(lambda: [
+            exact_coefficients(bl, 50, tables) for bl in blocks], reps),
+        "encode_ranges_ms": host_ms(lambda: tiled.encode_ranges(
+            zz_list, tables, None, 4.0), reps),
+        "encode_ranges_with_offsets_ms": host_ms(lambda: tiled.encode_ranges(
+            zz_list, tables, None, 4.0, with_offsets=True), reps),
+        "pull_and_concat_on_host_ms": host_ms(concat, reps),
+        "block_index_ms": host_ms(
+            lambda: container.make_block_index(offsets), reps),
+        "flagged_blocks": flagged, "blocks": nb, "block_ranges": len(ranges),
+    }
+
+
+def phase_tiled() -> dict:
+    """The path of this slice at full size: one 7680x4320 image (33.2 MP,
+    518 400 blocks: two block ranges of one call each on one card) through
+    ``compress`` (exact and fast), ``decompress`` and
+    ``parallel.tiled.encode_tiled`` in both assembly modes, and one
+    4096x4104 image (just over the limit) with auto tables; bytes and
+    pixels against the float64 oracle.  In a rehearsal the images are
+    small and the limit is lowered to 100 blocks."""
+    limit = pipeline.MAX_PIXELS
+    if REHEARSE:
+        pipeline.MAX_PIXELS = 64 * 100
+    try:
+        return _tiled_checks()
+    finally:
+        pipeline.MAX_PIXELS = limit
+
+
+def _tiled_checks() -> dict:
+    quality = 50
+    h, w = (72, 136) if REHEARSE else (4320, 7680)
+    img = seeded_image(h, w, 8)
+    nb = (h // 8) * (w // 8)
+    k = len(tiled.sub_ranges(0, nb))
+    if k < 2:
+        fail(f"tiled: {h}x{w} is {k} block range, not two")
+    per_path: dict = {}
+    mesh = make_mesh(1, device=DEV)
+    t0 = time.perf_counter()
+    encode2.transform_launches = 0
+    exact = counted(f"compress {w}x{h} exact", lambda: codec.compress(
+        img, quality, device=DEV), tiled_launches(k, True), per_path)
+    fast = counted(f"compress {w}x{h} fast", lambda: codec.compress(
+        img, quality, precision="fast", device=DEV),
+        tiled_launches(k, False), per_path)
+    fast_transform = encode2.transform_launches
+    if not REHEARSE and fast_transform != k:
+        fail(f"tiled: the fast transform pass ran {fast_transform} times")
+    engine = Engine("exact", DEV)
+    decoded = counted(f"decompress {w}x{h}", lambda: engine.decompress(
+        exact), DECODE_KERNEL, per_path)
+    legs = dict(engine.decode_stats)
+    decoded_fast = engine.decompress(fast)
+    by_mode = {}
+    for assemble in ("host", "device"):
+        by_mode[assemble] = counted(
+            f"encode_tiled {assemble}", lambda: tiled.encode_tiled(
+                img, quality, mesh=mesh, assemble=assemble),
+            tiled_launches(k, True), per_path)
+    port_s = time.perf_counter() - t0
+    if legs != {"kernel": 1, "host_entropy": 0, "host_decoder": 0}:
+        fail(f"tiled: the decode took the legs {legs}")
+
+    t0 = time.perf_counter()
+    oracle = container.compress(img, quality, block_index=True)
+    oracle_encode_s = time.perf_counter() - t0
+    if exact != oracle:
+        fail(f"tiled: the {w}x{h} exact stream differs from the oracle "
+             f"({len(exact)} and {len(oracle)} bytes)")
+    pay_end = container.parse_block_index(exact, nb)[2]
+    for assemble, data in by_mode.items():
+        if data != exact[:pay_end]:
+            fail(f"tiled: encode_tiled(assemble={assemble!r}) differs from "
+                 "the oracle's stream without its trailer")
+    t0 = time.perf_counter()
+    oracle_px = container.decompress(exact)
+    oracle_decode_s = time.perf_counter() - t0
+    if not np.array_equal(decoded, oracle_px):
+        fail(f"tiled: decompress differs from the oracle in "
+             f"{int((decoded != oracle_px).sum())} pixels")
+    pe, pf = psnr(img, decoded), psnr(img, decoded_fast)
+    if not (np.isfinite(pe) and abs(pe - pf) <= 0.01):
+        fail(f"tiled: fast PSNR {pf} dB, exact {pe} dB (> 0.01 apart)")
+
+    h2, w2 = (64, 104) if REHEARSE else (4096, 4104)
+    img2 = seeded_image(h2, w2, 9)
+    nb2 = (h2 // 8) * (w2 // 8)
+    k2 = len(tiled.sub_ranges(0, nb2))
+    if k2 < 2:
+        fail(f"tiled: {h2}x{w2} is not over the limit")
+    want = tiled_launches(k2, True)
+    t0 = time.perf_counter()
+    auto = counted(f"compress auto_table {w2}x{h2}", lambda: codec.compress(
+        img2, quality, auto_generate_huffman_table=True, device=DEV),
+        want, per_path)
+    auto_port_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if auto != container.compress(img2, quality, True, block_index=True):
+        fail(f"tiled: the {w2}x{h2} auto-table stream differs from "
+             "container.compress(..., True, block_index=True)")
+    auto_oracle_s = time.perf_counter() - t0
+
+    reps = 1 if REHEARSE else 3
+    mp = img.size / 1e6
+    timing = {}
+    for label, fn in (
+            ("encode_exact", lambda: codec.compress(img, quality,
+                                                    device=DEV)),
+            ("encode_fast", lambda: codec.compress(
+                img, quality, precision="fast", device=DEV)),
+            ("decode_exact", lambda: engine.decompress(exact))):
+        ms = host_ms(fn, reps)
+        timing[f"{label}_ms"] = ms
+        timing[f"{label}_MP_per_s"] = mp / ms * 1e3
+    timing["oracle_encode_ms"] = oracle_encode_s * 1e3
+    timing["oracle_decode_ms"] = oracle_decode_s * 1e3
+    emit("tiled_breakdown", image=[h, w],
+         note="stages of one exact encode and one exact decode of the "
+         "large image, each timed alone (host clock, synchronised, "
+         f"median of {reps}); encode: per block range the upload of its "
+         "rows + blockify, exact_transform, exact_coefficients (the same + "
+         "flags to the host + float64 recompute + patch), encode2 + place "
+         "+ the totals (encode_ranges), then the pull and concatenation "
+         "of the segments on the host and the TICX trailer",
+         encode=encode_stages(img, reps), decode=decode_stages([exact], reps))
+    emit("tiled", image=[h, w], blocks=nb, block_ranges=k,
+         max_blocks_a_call=pipeline.MAX_PIXELS // 64, quality=quality,
+         oracle_checked=f"{w}x{h} exact compress == container.compress("
+         "block_index=True); encode_tiled host and device == that stream "
+         "without its trailer; decompress == container.decompress; "
+         f"{w2}x{h2} auto tables == container.compress(..., True, "
+         "block_index=True)",
+         fast_vs_exact_psnr_db=abs(pe - pf), psnr_exact_db=pe,
+         decode_legs=legs, bytes_exact=len(exact), bytes_fast=len(fast),
+         bytes_auto_table=len(auto), fast_transform_launches=fast_transform,
+         launches_by_path=per_path,
+         sha256_exact=hashlib.sha256(exact).hexdigest(),
+         port_seconds=round(port_s, 1),
+         auto_table_seconds=round(auto_port_s, 1),
+         auto_table_oracle_seconds=round(auto_oracle_s, 1),
+         timing_note="host clock around synchronised calls, median of "
+         f"{reps} after a warm one; encodes from host memory, decode to "
+         "host memory; oracle_* = container.compress / decompress, once",
+         **timing)
+    return {"per_path": per_path, "image": img, "exact": exact,
+            "pay_end": pay_end}
+
+
+def sharded_rank(mesh, image: np.ndarray, corpus: np.ndarray,
+                 exact: list[bytes]) -> dict:
+    """One rank of phase ``sharded`` (a spawned process): the tiled encode
+    of the large image in both modes, the sharded encode of the corpus in
+    both precisions and its sharded decode; the launch counts from a reset
+    just before to a reading just after."""
+    reset_counts()
+    t0 = time.perf_counter()
+    out = {
+        "rank": mesh.rank, "size": mesh.size, "device": str(mesh.device),
+        "backend": torch.distributed.get_backend(mesh.group),
+        "tiled_host": tiled.encode_tiled(image, 50, mesh=mesh),
+        "tiled_device": tiled.encode_tiled(image, 50, mesh=mesh,
+                                           assemble="device"),
+        "sharded_exact": pbatch.compress_batch_sharded(
+            corpus, 50, mesh=mesh, precision="exact"),
+        "sharded_fast": pbatch.compress_batch_sharded(corpus, 50, mesh=mesh),
+        "decoded": pbatch.decompress_batch_sharded(exact, mesh=mesh),
+    }
+    sync()
+    out["seconds"] = time.perf_counter() - t0
+    out["counts"] = counts()
+    return out
+
+
+def phase_sharded(corpus: np.ndarray, big: dict, exact: list[bytes]) -> dict:
+    """``parallel`` over processes on the one card: two ranks over gloo,
+    each launching its kernels on ``cuda:0`` (NCCL puts no two ranks on
+    one device), then NCCL at a world of one; the same calls in both.  The
+    kernels and ``native/`` were built before the spawn.  A rank that
+    fails fails the run."""
+    nb = (corpus.shape[1] // 8) * (corpus.shape[2] // 8)
+    want = {
+        "tiled": big["exact"][:big["pay_end"]],
+        "sharded_exact": [s[:container.parse_block_index(s, nb)[2]]
+                          for s in exact],
+        "sharded_fast": codec.compress_batch(corpus, 50, precision="fast",
+                                             block_index=False, device=DEV),
+        "decoded": codec.decompress_batch(exact, device=DEV),
+    }
+    runs = [("gloo", 2, "cpu" if REHEARSE else "cuda:0"),
+            ("gloo" if REHEARSE else "nccl", 1,
+             "cpu" if REHEARSE else "cuda:0")]
+    per_path: dict = {}
+    report = []
+    for backend, world, device in runs:
+        t0 = time.perf_counter()
+        results = spawn(sharded_rank, world, backend=backend, device=device,
+                        args=(big["image"], corpus, exact))
+        secs = time.perf_counter() - t0
+        for r in results:
+            label = f"{backend} x{world} rank {r['rank']}"
+            if (r["size"], r["backend"]) != (world, backend):
+                fail(f"sharded[{label}]: a mesh of {r['size']} over "
+                     f"{r['backend']}")
+            for key in ("tiled_host", "tiled_device"):
+                if r[key] != want["tiled"]:
+                    fail(f"sharded[{label}]: {key} differs from the oracle")
+            for key in ("sharded_exact", "sharded_fast"):
+                if r[key] != want[key]:
+                    fail(f"sharded[{label}]: {key} differs from "
+                         "compress_batch's bytes")
+            if not np.array_equal(r["decoded"], want["decoded"]):
+                fail(f"sharded[{label}]: decompress_batch_sharded differs "
+                     "from decompress_batch")
+            got = r["counts"]
+            if not REHEARSE:
+                for k in ("exact_transform", "encode2_zz", "encode2_pixels",
+                          "place", "entropy_decode"):
+                    if got[k] < 1:
+                        fail(f"sharded[{label}]: {k} was not launched")
+            per_path[label] = got
+            report.append({"ranks": label, "device": r["device"],
+                           "rank_seconds": round(r["seconds"], 2)})
+        report.append({"ranks": f"{backend} x{world}",
+                       "spawn_seconds": round(secs, 1)})
+    emit("sharded", runs=report, launches_by_path=per_path,
+         checked=f"every rank: encode_tiled of the {big['image'].shape[1]}x"
+         f"{big['image'].shape[0]} image (host and device) == the oracle's "
+         "stream without its trailer; compress_batch_sharded of the corpus "
+         "== compress_batch's bytes (exact, fast, no trailer); "
+         "decompress_batch_sharded == decompress_batch",
+         unverified="NCCL at a world above one: NCCL puts no two ranks on "
+         "one device, and this machine has one card")
+    return per_path
+
+
+def phase_stream(corpus: np.ndarray) -> dict:
+    """``compress_stream`` over the corpus (chunk 8: six chunks and a tail
+    of one) against ``compress_batch``, ``decompress_stream`` against
+    ``decompress_batch``, and the double-buffered stream timed beside the
+    same chunks encoded one after another."""
+    chunk = 2 if REHEARSE else 8
+    n = corpus.shape[0]
+    k = -(-n // chunk)
+    per_path: dict = {}
+    fast = codec.compress_batch(corpus, 50, precision="fast", device=DEV)
+    exact = codec.compress_batch(corpus, 50, device=DEV)
+    got = counted(f"compress_stream chunk {chunk}", lambda: list(
+        pstream.compress_stream(iter(corpus), 50, chunk=chunk, device=DEV)),
+        {"encode2_pixels": (k,), "place": tuple(range(k, 2 * k + 1))},
+        per_path)
+    if got != fast:
+        fail("stream: compress_stream differs from compress_batch")
+    decoded = counted(f"decompress_stream chunk {chunk}", lambda: list(
+        pstream.decompress_stream(iter(exact), chunk=chunk, device=DEV)),
+        {"entropy_decode": (k,)}, per_path)
+    ref = codec.decompress_batch(exact, device=DEV)
+    if not all(np.array_equal(a, b) for a, b in zip(decoded, ref)) or len(
+            decoded) != n:
+        fail("stream: decompress_stream differs from decompress_batch")
+
+    def one_after_another():
+        out = []
+        for i in range(0, n, chunk):
+            part = corpus[i:i + chunk]
+            count = len(part)
+            part = np.concatenate([part, part[-1:].repeat(chunk - count, 0)])
+            out += compress_batch_device(
+                torch.from_numpy(part).to(DEV), 50, precision="fast",
+                block_index=True, device=DEV)[:count]
+        return out
+
+    if one_after_another() != fast:
+        fail("stream: the chunks one after another differ")
+    reps = 1 if REHEARSE else 5
+    stream_ms = host_ms(lambda: list(pstream.compress_stream(
+        iter(corpus), 50, chunk=chunk, device=DEV)), reps)
+    serial_ms = host_ms(one_after_another, reps)
+    # the parts: the uploads alone (pageable, as one after another does
+    # them; pinned on a side stream, as the stream does), the encodes of
+    # chunks already on the card
+    parts = [np.concatenate([corpus[i:i + chunk], corpus[n - 1:n].repeat(
+        max(0, i + chunk - n), 0)]) for i in range(0, n, chunk)]
+    on_card = [torch.from_numpy(p).to(DEV) for p in parts]
+    split = {
+        "upload_pageable_ms": host_ms(
+            lambda: [torch.from_numpy(p).to(DEV) for p in parts], reps),
+        "encode_on_card_ms": host_ms(lambda: [compress_batch_device(
+            t, 50, precision="fast", block_index=True, device=DEV)
+            for t in on_card], reps),
+    }
+    if DEV.type == "cuda":
+        side = torch.cuda.Stream(DEV)
+        pinned = [torch.empty(parts[0].shape, dtype=torch.uint8,
+                              pin_memory=True) for _ in range(2)]
+
+        def upload_pinned():
+            for i, p in enumerate(parts):
+                np.copyto(pinned[i % 2].numpy(), p)
+                with torch.cuda.stream(side):
+                    pinned[i % 2].to(DEV, non_blocking=True)
+                side.synchronize()
+
+        split["upload_pinned_side_stream_ms"] = host_ms(upload_pinned, reps)
+    emit("stream", images=n, chunk=chunk, chunks=k,
+         checked="compress_stream == compress_batch (fast, indexed); "
+         "decompress_stream == decompress_batch",
+         launches_by_path=per_path, double_buffered_ms=stream_ms,
+         one_after_another_ms=serial_ms, parts=split,
+         timing_note=f"host clock, median of {reps} after a warm one; "
+         "no bar: shows whether the copy of chunk i+1 overlaps chunk i")
+    return per_path
+
+
 def phase_host_legs(exact: list[bytes], nb: int) -> dict:
     """The two host legs of decode at 512x512, now through the C decoder:
     a stream without its trailer (host entropy) and one with a corrupt
@@ -2039,6 +2484,52 @@ def auto_table_breakdown(img: np.ndarray, stage) -> None:
          assemble_ms=stage(assemble))
 
 
+def decode_stages(streams: list[bytes], reps: int) -> dict:
+    """Where an exact decode of ``streams`` (uniform, TICX-indexed)
+    spends its time: each stage alone, host clock around a synchronised
+    call, median of ``reps``."""
+    prep, args, dtab = decode_inputs(streams)
+    h, w, quality = prep["shape"]
+    b = len(streams)
+    zz, _ = entropy_decode.entropy_decode_chunks(*args, prep["nb_total"],
+                                                 dtab)
+    zz = zz.reshape(b, -1, 64)
+
+    def xform():
+        zz_abs = transform.undo_dpcm(zz)
+        return zz_abs, *transform.decode_blocks(
+            zz_abs, quality, transform.EXACT, with_flags=True, tables=dtab)
+
+    zz_abs, px_blocks, flags = xform()
+    idx = torch.nonzero(flags.reshape(-1)).reshape(-1)
+
+    def recompute():
+        rows = zz_abs.reshape(-1, 64)[idx].cpu().numpy()
+        fixed = _host_decode_blocks(rows, quality, False)
+        px_blocks.reshape(-1, 8, 8)[idx] = torch.from_numpy(fixed).to(DEV)
+
+    return {
+        "prepare_batch_host_ms": host_ms(
+            lambda: entropy_decode.prepare_batch(streams), reps),
+        "upload_words_and_chunks_ms": host_ms(
+            lambda: decode_inputs(streams), reps),
+        "entropy_decode_ms": host_ms(
+            lambda: entropy_decode.entropy_decode_chunks(
+                *args, prep["nb_total"], dtab), reps),
+        "undo_dpcm_and_decode_blocks_ms": host_ms(xform, reps),
+        "flags_to_host_ms": host_ms(
+            lambda: torch.nonzero(flags.reshape(-1)).cpu(), reps),
+        "flagged_recompute_ms": host_ms(recompute, reps),
+        "unblockify_and_pull_pixels_ms": host_ms(
+            lambda: transform.unblockify(px_blocks, h, w).contiguous().cpu(),
+            reps),
+        "flagged_blocks": int(idx.numel()),
+        "blocks": int(flags.numel()),
+        "stream_words": int(args[0].numel()),
+        "chunks": int(args[1].numel()),
+    }
+
+
 def phase_timing(corpus: np.ndarray, streams: list[bytes],
                  auto: list[bytes]) -> None:
     """End-to-end corpus pass, warm: from host memory and from the card;
@@ -2130,46 +2621,7 @@ def phase_timing(corpus: np.ndarray, streams: list[bytes],
          "(host clock, synchronised); exact_coefficients = exact_transform "
          "+ pull of the flags + float64 host recompute of the flagged "
          "blocks + patch", **breakdown)
-    # ---- where an exact decode pass spends its time ---------------------
-    prep, args, dtab = decode_inputs(streams)
-    h, w, quality = prep["shape"]
-    b = len(streams)
-    zz, _ = entropy_decode.entropy_decode_chunks(*args, prep["nb_total"],
-                                                 dtab)
-    zz = zz.reshape(b, -1, 64)
-
-    def xform():
-        zz_abs = transform.undo_dpcm(zz)
-        return zz_abs, *transform.decode_blocks(
-            zz_abs, quality, transform.EXACT, with_flags=True, tables=dtab)
-
-    zz_abs, px_blocks, flags = xform()
-    idx = torch.nonzero(flags.reshape(-1)).reshape(-1)
-
-    def recompute():
-        rows = zz_abs.reshape(-1, 64)[idx].cpu().numpy()
-        fixed = _host_decode_blocks(rows, quality, False)
-        px_blocks.reshape(-1, 8, 8)[idx] = torch.from_numpy(fixed).to(DEV)
-
-    decode_breakdown = {
-        "prepare_batch_host_ms": stage(
-            lambda: entropy_decode.prepare_batch(streams)),
-        "upload_words_and_chunks_ms": stage(
-            lambda: decode_inputs(streams)),
-        "entropy_decode_ms": stage(
-            lambda: entropy_decode.entropy_decode_chunks(
-                *args, prep["nb_total"], dtab)),
-        "undo_dpcm_and_decode_blocks_ms": stage(xform),
-        "flags_to_host_ms": stage(
-            lambda: torch.nonzero(flags.reshape(-1)).cpu()),
-        "flagged_recompute_ms": stage(recompute),
-        "unblockify_and_pull_pixels_ms": stage(
-            lambda: transform.unblockify(px_blocks, h, w).contiguous().cpu()),
-        "flagged_blocks": int(idx.numel()),
-        "blocks": int(flags.numel()),
-        "stream_words": int(args[0].numel()),
-        "chunks": int(args[1].numel()),
-    }
+    decode_breakdown = decode_stages(streams, reps)
     emit("decode_breakdown", note="stages of one exact decode pass of the "
          "corpus streams, each timed alone (host clock, synchronised); "
          "upload_words_and_chunks includes prepare_batch; flagged_recompute "
@@ -2208,10 +2660,14 @@ def main() -> None:
     launched, exact_streams = phase_main_path(corpus)
     auto_paths, auto_err, auto_streams = phase_auto_table(corpus)
     errs["encode2"] = max(errs["encode2"], auto_err)
-    # this slice's paths count with the round trip's
-    for c in auto_paths.values():
-        for k in launched:
-            launched[k] += c[k]
+    big = phase_tiled()
+    sharded_paths = phase_sharded(corpus, big, exact_streams)
+    stream_paths = phase_stream(corpus)
+    # the later slices' paths count with the round trip's
+    for paths in (auto_paths, big["per_path"], sharded_paths, stream_paths):
+        for c in paths.values():
+            for k in launched:
+                launched[k] += c[k]
     phase_host_legs(exact_streams, (corpus.shape[1] // 8) ** 2)
     kernels = phase_kernels(corpus, launched, errs, exact_streams, one_image,
                             place_times, encode1_image)

@@ -183,8 +183,23 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "tinyimgcodec_tpu_torch.ops.transform, "
         "tinyimgcodec_tpu_torch.engine, "
         "tinyimgcodec_tpu_torch.native, "
-        "tinyimgcodec_tpu_torch.ops._build\n"
+        "tinyimgcodec_tpu_torch.ops._build, "
+        "tinyimgcodec_tpu_torch.parallel, "
+        "tinyimgcodec_tpu_torch.parallel.mesh, "
+        "tinyimgcodec_tpu_torch.parallel.tiled, "
+        "tinyimgcodec_tpu_torch.parallel.batch, "
+        "tinyimgcodec_tpu_torch.parallel.stream, "
+        "tinyimgcodec_tpu_torch.jobs, "
+        "tinyimgcodec_tpu_torch.profiling, "
+        "tinyimgcodec_tpu_torch.cli, "
+        "tinyimgcodec_tpu_torch.cli.encode, "
+        "tinyimgcodec_tpu_torch.cli.convert, "
+        "tinyimgcodec_tpu_torch.cli.view, "
+        "tinyimgcodec_tpu_torch.cli.benchmark\n"
         "img = (np.arange(64 * 64).reshape(64, 64) % 251).astype(np.uint8)\n"
+        "from tinyimgcodec_tpu_torch.parallel import make_mesh, tiled\n"
+        "assert tiled.encode_tiled(img, 50, mesh=make_mesh(device='cpu')) "
+        "== t.compress(img, 50, block_index=False, device='cpu')\n"
         "d = t.compress(img, 50, device='cpu')\n"
         "assert t.decompress(d, backend='host').shape == img.shape\n"
         "out = t.decompress_batch([d, d], device='cpu')\n"

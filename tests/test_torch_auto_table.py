@@ -20,6 +20,7 @@ from tinyimgcodec_tpu_torch.constants import ZIGZAG_ORDER, quant_divisors
 from tinyimgcodec_tpu_torch.engine import KERNEL_BLOCK_BITS, Engine
 from tinyimgcodec_tpu_torch.metrics import psnr
 from tinyimgcodec_tpu_torch.ops.encode2 import encode2_plain
+from tinyimgcodec_tpu_torch.parallel import tiled
 from tinyimgcodec_tpu_torch.tables import (
     CodecTables, dct_basis, fast_encode_matrix, symbol_words,
 )
@@ -97,9 +98,10 @@ def _image_with_runs(quality: int = 90) -> np.ndarray:
 
 @pytest.fixture
 def routes(monkeypatch):
-    """The route each auto-table encode took, in call order."""
+    """The route each auto-table encode took, in call order (the kernel
+    route codes its block ranges through ``parallel.tiled``)."""
     taken = []
-    kernel, host = engine.encode2, container.compress_arrays
+    kernel, host = tiled.encode2, container.compress_arrays
 
     def spy_kernel(*args, **kwargs):
         taken.append("kernel")
@@ -109,7 +111,7 @@ def routes(monkeypatch):
         taken.append("host")
         return host(*args, **kwargs)
 
-    monkeypatch.setattr(engine, "encode2", spy_kernel)
+    monkeypatch.setattr(tiled, "encode2", spy_kernel)
     monkeypatch.setattr(container, "compress_arrays", spy_host)
     return taken
 

@@ -708,3 +708,66 @@ def test_encode2_on_hand_made_run_time_tables_equals_plain(cuda):
         p = encode2.encode2_plain(x, t, nb, from_zz=True)
         assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
         assert not bool(k[2]) and not bool(p[2])
+
+
+# ---- a DC predictor carried into a block range, and the parallel paths ----
+
+
+@pytest.mark.parametrize("form", ["coefficients", "pixels"])
+def test_encode2_dc_init_equals_plain_version(cuda, form):
+    """Each image's first predictor carried in: 0 and +-1, near +-2047, a
+    difference of category 11 and one of 12 bits (the flag reads alike)."""
+    imgs = np.random.RandomState(8).randint(0, 256, (3, 136, 152)).astype(
+        np.uint8)
+    t = CodecTables.build(90, cuda)
+    blocks = _blocks(imgs, cuda).contiguous()
+    nb = blocks.shape[0] // 3
+    if form == "coefficients":
+        zz, _ = exact_transform.exact_transform(blocks, t)
+    else:
+        zz = encode2.fast_coefficients(blocks, t)
+    first = zz[0, ::nb].to(torch.int64)
+    sign = torch.where(first >= 0, 1, -1)
+    for init, over in ((torch.tensor([0, 1, -1], device=cuda), False),
+                       (torch.tensor([2047, -2047, 2046], device=cuda), None),
+                       (first - 1500 * sign, False),
+                       (first - 2100 * sign, True)):
+        d = init.to(torch.int32)
+        x = zz if form == "coefficients" else blocks
+        a = encode2.encode2(x, t, nb, from_zz=form == "coefficients",
+                            dc_init=d)
+        b = encode2.encode2_plain(zz, t, nb, from_zz=True, dc_init=d)
+        assert all(torch.equal(p, q) for p, q in zip(a, b))
+        assert over is None or bool(a[2]) == over
+
+
+def test_parallel_paths_on_the_card(cuda, monkeypatch):
+    """With one call's limit lowered to 37 blocks: tiled encode (both
+    modes) and ``compress`` of a 100x123 image in six block ranges equal
+    the oracle; the batch, sharded and stream functions equal
+    ``compress_batch`` / ``decompress_batch`` on the card."""
+    from tinyimgcodec_tpu_torch import compress, pipeline
+    from tinyimgcodec_tpu_torch.parallel import batch, make_mesh, stream
+    from tinyimgcodec_tpu_torch.parallel.tiled import encode_tiled
+
+    img = synthetic_image(100, 123, seed=76)
+    oracle = container.compress(img, 50, block_index=True)
+    monkeypatch.setattr(pipeline, "MAX_PIXELS", 64 * 37)
+    before = encode2.launches
+    assert compress(img, 50, device=cuda) == oracle
+    assert encode2.launches - before == 6
+    mesh = make_mesh(device=cuda)
+    end = container.parse_block_index(oracle, 208)[2]
+    for assemble in ("host", "device"):
+        assert encode_tiled(img, 50, mesh=mesh,
+                            assemble=assemble) == oracle[:end]
+    imgs = np.stack([synthetic_image(40, 48, seed=s) for s in range(5)])
+    streams = compress_batch(imgs, 50, device=cuda)
+    assert batch.compress_batch(imgs, 50, mesh=mesh,
+                                block_index=True) == streams
+    assert list(stream.compress_stream(imgs, 50, chunk=2, precision="exact",
+                                       device=cuda)) == streams
+    assert np.array_equal(batch.decompress_batch_sharded(streams, mesh=mesh),
+                          decompress_batch(streams, device=cuda))
+    assert all(np.array_equal(a, container.decompress(s)) for a, s in zip(
+        stream.decompress_stream(streams, chunk=2, device=cuda), streams))

@@ -181,10 +181,61 @@ def test_true_shape_and_tensor_input():
                               device="cpu")
 
 
-def test_oversize_batch_is_refused_loudly():
-    big = np.zeros((1, 4096, 4104), np.uint8)
-    with pytest.raises(NotImplementedError, match="tiled"):
-        compress_batch_device(big, 50, device="cpu")
+@pytest.mark.parametrize("entry", ["compress", "compress auto table",
+                                   "compress_batch"])
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+def test_an_image_over_the_pixel_limit_is_encoded_in_block_ranges(
+        precision, entry, monkeypatch):
+    """With the limit lowered to 37 blocks, a 100x123 image (208 blocks)
+    goes through ``parallel.tiled`` in six calls of the kernels with the DC
+    predictor carried across each cut: exact mode gives the oracle's
+    bytes, fast mode the bytes of the uncut call, trailer included."""
+    from tinyimgcodec_tpu_torch import api, pipeline
+    from tinyimgcodec_tpu_torch.parallel import tiled
+
+    img = synthetic_image(100, 123, seed=76)
+    auto = entry == "compress auto table"
+
+    def run():
+        if entry == "compress_batch":
+            return api.compress_batch(np.stack([img, img]), 50,
+                                      precision=precision, device="cpu")
+        return [api.compress(img, 50, auto_generate_huffman_table=auto,
+                             precision=precision, device="cpu")]
+
+    uncut = run()
+    monkeypatch.setattr(pipeline, "MAX_PIXELS", 64 * 37)
+    calls = []
+    real = tiled.encode2
+
+    def spy(x, tables, nb, from_zz=False, dc_init=None):
+        calls.append(nb)
+        return real(x, tables, nb, from_zz=from_zz, dc_init=dc_init)
+
+    monkeypatch.setattr(tiled, "encode2", spy)
+    got = run()
+    assert got == uncut
+    assert calls == ([37] * 5 + [23]) * len(got)
+    if precision == "exact":
+        oracle = jcontainer.compress(img, 50, auto, block_index=True)
+        assert got == [oracle] * len(got)
+    for data in got:
+        assert np.array_equal(tcontainer.decompress(data),
+                              jcontainer.decompress(data))
+
+
+def test_a_mixed_batch_with_an_oversize_image(monkeypatch):
+    """A list of one image over the (lowered) limit and two under it: the
+    large one is cut into block ranges, the others form one batch; each
+    stream is the oracle's."""
+    from tinyimgcodec_tpu_torch import api, pipeline
+
+    imgs = [synthetic_image(72, 72, seed=77), synthetic_image(40, 48, seed=78),
+            synthetic_image(40, 48, seed=79)]
+    monkeypatch.setattr(pipeline, "MAX_PIXELS", 40 * 48 * 5 // 2)
+    got = api.compress_batch(imgs, 50, device="cpu")
+    assert got == [jcontainer.compress(im, 50, block_index=True)
+                   for im in imgs]
 
 
 @pytest.mark.parametrize("precision", ["exact", "fast"])
@@ -218,9 +269,15 @@ def test_a_batch_over_the_pixel_limit_is_cut_at_image_boundaries(
     if precision == "exact":
         assert got == [jcontainer.compress(im, 50, block_index=True)
                        for im in imgs]
-    with pytest.raises(NotImplementedError, match="tiled"):
-        compress_batch_device(np.zeros((1, 72, 72), np.uint8), 50,
-                              device="cpu")
+    # an image over the limit alone: block ranges on the v2 kernels; the
+    # v1 kernels cannot cut it
+    big = synthetic_image(72, 72, seed=75)
+    assert compress_batch_device(big[None], 50, precision="exact",
+                                 block_index=True, device="cpu") == [
+        jcontainer.compress(big, 50, block_index=True)]
+    with pytest.raises(NotImplementedError, match="v1"):
+        compress_batch_device(big[None], 50, precision="fast", device="cpu",
+                              version="v1")
 
 
 @pytest.mark.parametrize(

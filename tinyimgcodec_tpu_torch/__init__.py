@@ -19,6 +19,10 @@ Public API:
   same device rule; TICX-indexed streams are entropy-decoded on the card.
 - ``encode(image, quality) -> CodecArrays`` / ``decode(CodecArrays)``:
   the array-level host oracle.
+
+``parallel`` spreads one image's block ranges or a batch's images over
+the ranks of a ``torch.distributed`` group and streams images through a
+double-buffered feed; ``jobs``, ``profiling`` and ``cli`` are the tools.
 """
 
 from __future__ import annotations

@@ -54,6 +54,8 @@ def compress(
     (float32 transform; rare rounding ties may differ).
     block_index: append the TICX block-offset trailer (default on).
     config: a validated CodecConfig; overrides the loose kwargs.
+    An image of more than 16 Mi pixels is encoded in block ranges of one
+    kernel call each (``parallel/tiled.py``), with the same bytes.
     """
     if config is None:
         config = CodecConfig(
@@ -93,9 +95,11 @@ def compress_batch(
     """(B, H, W) same-shaped grayscale images -> list of compressed bytes.
 
     ``images`` may be a numpy array (any H, W >= 8; odd shapes are padded
-    and the header keeps the true size) or a block-aligned uint8
+    and the header keeps the true size), a block-aligned uint8
     ``torch.Tensor`` already on the card, which skips the host->device
-    transfer.
+    transfer, or a list of (H, W) arrays of several shapes (each run of
+    one shape is a batch).  Images of more than 16 Mi pixels are encoded
+    one at a time in block ranges.
     """
     config = CodecConfig(
         quality=quality, precision=precision, block_index=block_index,

@@ -10,9 +10,11 @@
 // What had to change.  The TPU kernel runs its grid in order on one core
 // and carries the DC predictor and the running stream offset from tile to
 // tile in scalar memory.  CUDA blocks run in no order, so here
-//   - a block's DC predictor is its left neighbour's DC (zero at the first
-//     block of an image); a tile's first block reads (or, from pixels,
-//     computes) the one coefficient of the tile before it;
+//   - a block's DC predictor is its left neighbour's DC (at the first
+//     block of an image zero, or the caller's dc_init: a range of one
+//     image's blocks carries the DC before it in); a tile's first block
+//     reads (or, from pixels, computes) the one coefficient of the tile
+//     before it;
 //   - the running offset comes from a single-pass scan across the CTAs
 //     (decoupled look-back, below) instead of a carried scalar;
 //   - table lookups are real lookups from shared memory (the TPU kernel's
@@ -84,9 +86,9 @@ __global__ void __launch_bounds__(ENC_THREADS)
 encode2_kernel(const void* __restrict__ x, const float* __restrict__ m,
                float off0, const uint32_t* dc, const uint32_t* ac,
                const uint32_t* zhi, const uint32_t* zlo,
-               unsigned long long* scan, uint32_t* __restrict__ packed,
-               int* __restrict__ meta, int n, int nb, int tiles_per_image,
-               int aligned16) {
+               const int* __restrict__ dc_init, unsigned long long* scan,
+               uint32_t* __restrict__ packed, int* __restrict__ meta, int n,
+               int nb, int tiles_per_image, int aligned16) {
     extern __shared__ __align__(16) unsigned char shared_raw[];
     int* tile = reinterpret_cast<int*>(shared_raw);  // (64, TILE)
     uint32_t* rows = reinterpret_cast<uint32_t*>(tile + 64 * TILE);
@@ -125,7 +127,9 @@ encode2_kernel(const void* __restrict__ x, const float* __restrict__ m,
             }
         }
         __pipeline_commit();
-        if (tid == 0) s_prev = tt == 0 ? 0 : zz[b0 - 1];
+        // an image's first block: the predictor carried in, or zero
+        if (tid == 0)
+            s_prev = tt > 0 ? zz[b0 - 1] : dc_init ? dc_init[img] : 0;
         for (int i = tid; i < ROWS_WORDS; i += ENC_THREADS) rows[i] = 0u;
         __pipeline_wait_prior(0);
         __syncthreads();
@@ -139,9 +143,9 @@ encode2_kernel(const void* __restrict__ x, const float* __restrict__ m,
                                  [&](int k, int v) { tile[k * TILE + tid] = v; });
         // the predictor of the tile's first block lies in another tile
         if (tid == ENC_THREADS - 1)
-            s_prev = tt == 0 ? 0
-                             : fast_transform_dc(pix + (size_t)(b0 - 1) * 64,
-                                                 sM, off0);
+            s_prev = tt > 0 ? fast_transform_dc(pix + (size_t)(b0 - 1) * 64,
+                                                sM, off0)
+                   : dc_init ? dc_init[img] : 0;
         __syncthreads();
         for (int i = tid; i < ROWS_WORDS; i += ENC_THREADS) rows[i] = 0u;
         __syncthreads();
@@ -219,7 +223,10 @@ encode2_kernel(const void* __restrict__ x, const float* __restrict__ m,
 
 // x: (n, 64) uint8 pixels (from_zz == 0) or (64, n) int32 coefficients
 // (from_zz != 0).  m (64, 64) float32, off0: fast transform.  dc (12), ac
-// (176), zhi (4), zlo (4): uint32 symbol tables.  packed (n, 56) uint32;
+// (176), zhi (4), zlo (4): uint32 symbol tables.  dc_init: (n / nb) int32,
+// the DC predictor of each image's first block, or null for zero (a
+// range of one image's blocks carries its predecessor's last DC in).
+// packed (n, 56) uint32;
 // meta (2, n) int32 = [global bit offset; bit count]; scan (2 + tiles)
 // uint64, zeroed by the caller before every call, tiles = (n / nb) *
 // ceil(nb / 128): [0] ticket, [1] non-zero on return if a coefficient lay
@@ -227,9 +234,9 @@ encode2_kernel(const void* __restrict__ x, const float* __restrict__ m,
 // nb.  One launch, on `stream`; returns the first non-zero CUDA error.
 extern "C" int encode2_launch(const void* x, int from_zz, const void* m,
                               float off0, const void* dc, const void* ac,
-                              const void* zhi, const void* zlo, void* scan,
-                              void* packed, void* meta, int n, int nb,
-                              void* stream) {
+                              const void* zhi, const void* zlo,
+                              const void* dc_init, void* scan, void* packed,
+                              void* meta, int n, int nb, void* stream) {
     if (n <= 0) return 0;
     const int tiles_per_image = (nb + TILE - 1) / TILE;
     const int grid = (n / nb) * tiles_per_image;
@@ -243,7 +250,7 @@ extern "C" int encode2_launch(const void* x, int from_zz, const void* m,
     if (err != cudaSuccess) return (int)err;
     kernel<<<grid, ENC_THREADS, SHARED_BYTES, (cudaStream_t)stream>>>(
         x, (const float*)m, off0, (const uint32_t*)dc, (const uint32_t*)ac,
-        (const uint32_t*)zhi, (const uint32_t*)zlo,
+        (const uint32_t*)zhi, (const uint32_t*)zlo, (const int*)dc_init,
         (unsigned long long*)scan, (uint32_t*)packed, (int*)meta, n, nb,
         tiles_per_image, aligned16);
     return (int)cudaGetLastError();

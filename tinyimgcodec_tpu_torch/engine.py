@@ -48,11 +48,9 @@ from .huffman import (
     block_bit_counts, build_huffman_spec_from_counts, symbol_counts,
 )
 from .ops import transform
-from .ops.encode2 import encode2, fast_coefficients
 from .ops.entropy_decode import entropy_decode_chunks, prepare_batch
-from .pipeline import (
-    check_pixels, compress_batch_device, exact_coefficients, place_stream,
-)
+from .parallel import tiled
+from .pipeline import compress_batch_device, stream_bytes
 from .tables import CodecTables, DecodeTables, dequant_multipliers
 
 _CHUNK_KEYS = ("chunk_start", "chunk_blocks", "chunk_block_base",
@@ -137,30 +135,30 @@ class Engine:
 
         Coefficients on the device (exact: ``exact_transform`` + the
         float64 recompute of flagged blocks; fast: the float32 transform
-        pass of ``encode2``), pulled once for the histograms and the
-        table (the same canonical construction as the host path).  Then, before
-        any launch, the route: the host container when the table is
-        ``extended`` or some block would take more than
+        pass of ``encode2``), in block ranges of at most
+        ``pipeline.MAX_PIXELS`` pixels, pulled once for the histograms and
+        the table (the same canonical construction as the host path).
+        Then, before any launch, the route: the host container when the
+        table is ``extended`` or some block would take more than
         ``KERNEL_BLOCK_BITS`` (the block rule of the JAX package,
         ``ops/entropy.py:263-268``; its other rule, no symbol slot above
         64 bits, does not apply: the kernel's bit sink takes the ZRL
-        prefix and the code apart), else ``encode2`` from the
-        coefficients with the new tables and ``place``."""
+        prefix and the code apart), else, range by range, ``encode2`` from
+        the coefficients with the new tables (the DC predictor carried
+        from range to range) and ``place``, the ranges stitched at bit
+        offsets after the table segment."""
         h, w = image.shape
         padded = np.ascontiguousarray(
-            transform.pad_to_blocks(image[None].astype(np.uint8)))
-        _, h8, w8 = padded.shape
-        check_pixels(h8, w8)
+            transform.pad_to_blocks(image.astype(np.uint8, copy=False)))
+        h8, w8 = padded.shape
         nb = (h8 // 8) * (w8 // 8)
         dev = self.device
-        tables = CodecTables.build(quality, dev)
-        blocks = transform.blockify(
-            torch.from_numpy(padded).to(dev)).reshape(nb, 64)
-        if self.precision == transform.EXACT:
-            zz = exact_coefficients(blocks, quality, tables)
-        else:
-            zz = fast_coefficients(blocks, tables)
-        zz_np = zz.cpu().numpy()
+        # in sub-ranges of at most one kernel call's pixels, as the tiled
+        # path cuts an image of more than ``MAX_PIXELS``
+        zz_list = tiled.range_coefficients(
+            padded, 0, nb, quality, CodecTables.build(quality, dev),
+            self.precision, dev)
+        zz_np = np.concatenate([zz.cpu().numpy() for zz in zz_list], axis=1)
         dc = np.diff(zz_np[0], prepend=np.int32(0)).astype(np.int32)
         ac = np.ascontiguousarray(zz_np[1:].T)
         spec = build_huffman_spec_from_counts(*symbol_counts(dc, ac))
@@ -172,19 +170,21 @@ class Engine:
                 arrays, True, block_index=block_index, spec=spec,
                 index_stride=index_stride,
             )
-        packed, meta, overflow = encode2(
-            zz, CodecTables.from_spec(spec, quality, dev), nb, from_zz=True)
-        payload, _, total = place_stream(packed, meta, overflow, nb,
-                                         -(-h8 * w8 * 4 // 32))
+        segments, offsets, table_over = tiled.encode_ranges(
+            zz_list, CodecTables.from_spec(spec, quality, dev), None,
+            bits_per_pixel_budget=4.0, with_offsets=block_index)
+        if table_over:
+            raise ValueError("coefficient out of Huffman table range")
+        words, total = tiled.concat_bits(
+            [(w.cpu(), bits) for w, bits in segments], torch.device("cpu"))
         writer = BitWriter()
         writer.write_bytes(container.make_header(arrays, custom_table=True))
         container.write_huffman_table(writer, spec.string_tables())
         data = concat_bit_payload(writer.to_bytes(), writer.bit_length(),
-                                  payload, total)
+                                  stream_bytes(words, total), total)
         if block_index:
             # payload-relative offsets: the image starts at bit 0
-            data += container.make_block_index(
-                meta[0].cpu().numpy().astype(np.int64), stride=index_stride)
+            data += container.make_block_index(offsets, stride=index_stride)
         return data
 
     # -- decode ----------------------------------------------------------
@@ -226,10 +226,11 @@ class Engine:
                  for i in range(0, len(streams), per)]
         if any(p is None for p in preps):
             return None
-        return np.concatenate([
-            self._decode_prepared(prep, streams[k * per:(k + 1) * per])
-            for k, prep in enumerate(preps)
-        ])
+        parts = [self._decode_prepared(prep, streams[k * per:(k + 1) * per])
+                 for k, prep in enumerate(preps)]
+        # one sub-batch (the rule) is returned as it is: a copy of its
+        # pixels into fresh memory costs more than the decode kernel
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
 
     def _decode_prepared(self, prep: dict, streams: list[bytes]):
         """One ``prepare_batch`` result -> (B, H, W) uint8."""

@@ -15,8 +15,10 @@ Output, the interface of the JAX package's ``encode_pallas2``:
 - ``overflow``: a 0-dim bool tensor, true when a DC difference needs more
   than 11 bits or an AC coefficient more than 10 (outside the tables).
 
-Per block: DC DPCM against the previous block (reset at each image's
-first block), DC category code + magnitude bits; for every nonzero AC
+Per block: DC DPCM against the previous block (at each image's first
+block against zero, or against ``dc_init``: the caller's (B,) int32 first
+predictors, with which a range of one image's blocks is coded as a
+continuation of the range before it), DC category code + magnitude bits; for every nonzero AC
 coefficient up to three ZRL codes (a run of 16 zeros each), the (run,
 size) code and the magnitude bits; EOB always.  The tables are arguments:
 the standard ones, or ones built at run time (codes of up to 16 bits).
@@ -92,10 +94,12 @@ def fast_coefficients_plain(pixels: torch.Tensor,
     return torch.round(y).to(torch.int32).T.contiguous()
 
 
-def block_slots(zz: torch.Tensor, tables: CodecTables, nb: int):
+def block_slots(zz: torch.Tensor, tables: CodecTables, nb: int,
+                dc_init: torch.Tensor | None = None):
     """Symbols of every block as 65 slots (DC, 63 AC positions, EOB).
 
-    ``zz`` (64, N) int64 coefficients.  Returns ``(sw, soff, blk_bits,
+    ``zz`` (64, N) int64 coefficients; ``dc_init`` the (N / nb,) DC
+    predictors of the images' first blocks (zero when ``None``).  Returns ``(sw, soff, blk_bits,
     over)``: each slot's bits left-aligned in three 32-bit words ``sw``
     (3, 65, N) (an empty slot is zero; a slot holds up to three 16-bit ZRL
     codes and a 26-bit code + magnitude, 74 bits), its exclusive bit
@@ -112,7 +116,7 @@ def block_slots(zz: torch.Tensor, tables: CodecTables, nb: int):
     # ---- DC slot --------------------------------------------------------
     dc = zz[0]
     prev = torch.roll(dc, 1)
-    prev[::nb] = 0
+    prev[::nb] = 0 if dc_init is None else dc_init.to(torch.int64)
     # 32-bit wrap-around of the difference, as the kernel computes it
     diff = ((dc - prev + (1 << 31)) & _M32) - (1 << 31)
     cat = _category(diff)
@@ -209,11 +213,11 @@ def image_offsets(blk_bits: torch.Tensor, nb: int):
 
 
 def encode2_plain(x: torch.Tensor, tables: CodecTables, nb: int,
-                  from_zz: bool = False):
+                  from_zz: bool = False, dc_init: torch.Tensor | None = None):
     """Plain PyTorch version (any device) of :func:`encode2`."""
-    _check(x, tables, nb, from_zz)
+    _check(x, tables, nb, from_zz, dc_init)
     zz = (x if from_zz else fast_coefficients_plain(x, tables)).to(torch.int64)
-    sw, soff, blk_bits, over = block_slots(zz, tables, nb)
+    sw, soff, blk_bits, over = block_slots(zz, tables, nb, dc_init)
     off, _, _ = image_offsets(blk_bits, nb)
     packed = pack_slots(sw, soff, off & 31, ROW_WORDS)
     meta = torch.stack([off, blk_bits]).to(torch.int32)
@@ -221,7 +225,7 @@ def encode2_plain(x: torch.Tensor, tables: CodecTables, nb: int,
 
 
 def _check(x: torch.Tensor, tables: CodecTables, nb: int,
-           from_zz: bool) -> int:
+           from_zz: bool, dc_init: torch.Tensor | None = None) -> int:
     if from_zz:
         if x.dtype != torch.int32 or x.ndim != 2 or x.shape[0] != 64:
             raise ValueError("from_zz input must be a (64, N) int32 tensor")
@@ -238,6 +242,11 @@ def _check(x: torch.Tensor, tables: CodecTables, nb: int,
         raise ValueError(
             f"N={n} blocks: a worst-case stream's bit offsets would pass "
             f"int32 (at most {MAX_BLOCKS} blocks)")
+    if dc_init is not None and (
+            dc_init.dtype != torch.int32 or dc_init.shape != (n // nb,)
+            or dc_init.device != x.device):
+        raise ValueError(
+            f"dc_init must be a ({n // nb},) int32 tensor on {x.device}")
     return n
 
 
@@ -248,7 +257,7 @@ def _lib() -> ctypes.CDLL:
         p = ctypes.c_void_p
         fn.argtypes = [
             p, ctypes.c_int, p, ctypes.c_float, p, p, p, p,
-            p, p, p, ctypes.c_int, ctypes.c_int, p,
+            p, p, p, p, ctypes.c_int, ctypes.c_int, p,
         ]
         fn.restype = ctypes.c_int
         ft = lib.fast_transform_launch
@@ -283,16 +292,18 @@ def fast_coefficients(pixels: torch.Tensor,
 
 
 def encode2(x: torch.Tensor, tables: CodecTables, nb: int,
-            from_zz: bool = False):
+            from_zz: bool = False, dc_init: torch.Tensor | None = None):
     """See the module docstring.  Returns ``(packed, meta, overflow)``.
     CUDA tensors go to the kernels, CPU tensors to the plain version;
     nothing else is tried."""
     if x.device.type == "cpu":
-        return encode2_plain(x, tables, nb, from_zz)
+        return encode2_plain(x, tables, nb, from_zz, dc_init)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     global launches
-    n = _check(x, tables, nb, from_zz)
+    n = _check(x, tables, nb, from_zz, dc_init)
+    if dc_init is not None:
+        dc_init = dc_init.contiguous()
     x = x.contiguous()
     dev = x.device
     packed = torch.empty((n, ROW_WORDS), dtype=torch.int32, device=dev)
@@ -307,7 +318,8 @@ def encode2(x: torch.Tensor, tables: CodecTables, nb: int,
             x.data_ptr(), int(from_zz), tables.encode_matrix.data_ptr(),
             tables.dc_offset, tables.dc_comb.data_ptr(),
             tables.ac_comb.data_ptr(), tables.zrl_hi.data_ptr(),
-            tables.zrl_lo.data_ptr(), scan.data_ptr(),
+            tables.zrl_lo.data_ptr(),
+            None if dc_init is None else dc_init.data_ptr(), scan.data_ptr(),
             packed.data_ptr(), meta.data_ptr(), n, int(nb),
             _build.stream_handle(dev),
         )

@@ -1,0 +1,19 @@
+"""Scale-out over processes: one image cut into block ranges, batches of
+images split over ranks, and a double-buffered image stream.
+
+The counterpart of the JAX package's ``parallel`` package on
+``torch.distributed``:
+
+- :mod:`.mesh` -- a 1-D mesh over the ranks of a process group (NCCL on
+  the card, gloo on the CPU), ``init_distributed`` and ``spawn``.
+- :mod:`.tiled` -- one image's blocks split into contiguous ranges over
+  the ranks and, within a rank, into calls of at most
+  ``pipeline.MAX_PIXELS`` pixels, with the DC predictor carried across
+  every cut and the segments stitched at bit offsets.  It is also the
+  path of a single image larger than one call of the kernels.
+- :mod:`.batch` -- data-parallel encode and decode of image batches.
+- :mod:`.stream` -- double-buffered host-to-card encode of an image
+  stream, and the chunked decode of a stream of streams.
+"""
+
+from .mesh import Mesh, init_distributed, make_mesh, spawn  # noqa: F401

@@ -45,8 +45,9 @@ from .tables import CodecTables
 
 # One call of the kernels takes at most this many pixels: block bit
 # offsets are int32 (safe up to ~82 MP of worst-case content).  A larger
-# batch is cut into calls of whole images; a larger image waits for the
-# tiled path of the JAX package, which is not ported yet.
+# batch is cut into calls of whole images; a larger image is cut into
+# block ranges of at most this many pixels (``parallel/tiled.py``), each
+# with its own int32 offsets, stitched at 64-bit bit offsets.
 MAX_PIXELS = 16 << 20
 
 
@@ -77,23 +78,25 @@ def exact_coefficients(blocks: torch.Tensor, quality: int,
 
 
 def check_pixels(h: int, w: int) -> None:
-    """Refuse an image of more than ``MAX_PIXELS`` pixels (block-aligned)."""
+    """Refuse an image of more than ``MAX_PIXELS`` pixels (block-aligned)
+    on a path that cannot cut it: the v1 kernels carry no DC predictor
+    into a block range."""
     if h * w > MAX_PIXELS:
         raise NotImplementedError(
             f"an image of {h * w} pixels exceeds the {MAX_PIXELS}-pixel "
-            "limit of this encode path; larger images wait for the "
-            "tiled slice of the port (parallel/tiled)"
+            "limit of one call of the v1 kernels, which cannot cut an "
+            "image into block ranges; the v2 kernels (version='v2') can"
         )
 
 
-def _pull_stream(launch, overflow: torch.Tensor, n: int, cap_words: int):
+def _assemble(launch, overflow: torch.Tensor, n: int, cap_words: int):
     """Run the stream assembly ``launch(cap) -> (stream, starts, total,
     status)`` (status bit 2: the stream passed ``cap`` words) at
     ``cap_words``, once more at ``n * 52`` words (the worst case) if that
-    was too small, and pull the result: (big-endian stream bytes up to the
-    total's last byte, image starts (B,) int64, total bits).  Raises
-    ``ValueError`` when ``overflow`` says a coefficient lies outside the
-    Huffman tables."""
+    was too small: (the stream words up to the total's last word, still
+    on the device; image starts (B,); total bits; whether ``overflow``
+    says a coefficient lies outside the Huffman tables -- then nothing is
+    retried)."""
 
     def run(cap):
         stream, starts, total, status = launch(cap)
@@ -102,27 +105,56 @@ def _pull_stream(launch, overflow: torch.Tensor, n: int, cap_words: int):
         return stream, starts, int(head[1]), int(head[0])
 
     stream, starts, total, status = run(max(cap_words, 1))
-    if status & 4:
-        raise ValueError("coefficient out of Huffman table range")
-    if status & 2:
+    if status & 2 and not status & 4:
         stream, starts, total, status = run(n * 52)
         if status & 2:
             raise ValueError("stream capacity overflow (worst case!)")
-    raw = stream[: -(-total // 32)].cpu().numpy().view(np.uint32)
-    return (raw.astype(">u4").tobytes()[: -(-total // 8)],
+    return stream[: -(-total // 32)], starts, total, bool(status & 4)
+
+
+def stream_bytes(words: torch.Tensor, total: int) -> bytes:
+    """Stream words (int32 or int64 bit patterns, on any device) -> the
+    big-endian bytes up to the ``total``-th bit's byte."""
+    raw = words.cpu().numpy()
+    raw = raw.view(np.uint32) if raw.dtype == np.int32 else raw
+    return raw.astype(">u4").tobytes()[: -(-total // 8)]
+
+
+def _pull_stream(launch, overflow: torch.Tensor, n: int, cap_words: int):
+    """:func:`_assemble`, then pull the result: (big-endian stream bytes
+    up to the total's last byte, image starts (B,) int64, total bits).
+    Raises ``ValueError`` when a coefficient lies outside the Huffman
+    tables."""
+    stream, starts, total, table_over = _assemble(launch, overflow, n,
+                                                  cap_words)
+    if table_over:
+        raise ValueError("coefficient out of Huffman table range")
+    return (stream_bytes(stream, total),
             starts.cpu().numpy().astype(np.int64), total)
+
+
+def _place_launch(packed: torch.Tensor, meta: torch.Tensor, nb: int):
+    def launch(cap):
+        stream, starts, total, cap_over = place(packed, meta, nb, cap)
+        return stream, starts, total, cap_over.to(torch.int64) * 2
+
+    return launch
+
+
+def place_words(packed: torch.Tensor, meta: torch.Tensor,
+                overflow: torch.Tensor, nb: int, cap_words: int):
+    """``encode2``'s outputs -> the stream through ``place``, left on the
+    device, as :func:`_assemble` returns it."""
+    return _assemble(_place_launch(packed, meta, nb), overflow,
+                     packed.shape[0], cap_words)
 
 
 def place_stream(packed: torch.Tensor, meta: torch.Tensor,
                  overflow: torch.Tensor, nb: int, cap_words: int):
     """``encode2``'s outputs -> the stream through ``place``, as
     :func:`_pull_stream` returns it."""
-
-    def launch(cap):
-        stream, starts, total, cap_over = place(packed, meta, nb, cap)
-        return stream, starts, total, cap_over.to(torch.int64) * 2
-
-    return _pull_stream(launch, overflow, packed.shape[0], cap_words)
+    return _pull_stream(_place_launch(packed, meta, nb), overflow,
+                        packed.shape[0], cap_words)
 
 
 def compress_batch_device(
@@ -147,6 +179,11 @@ def compress_batch_device(
     ``version``: ``"v2"`` (encode2 + place) or ``"v1"`` (encode1 +
     stitch), fast mode only: exact mode always runs the v2 kernels.  The
     block index needs the per-block offsets that only v2 returns.
+
+    An image of more than ``MAX_PIXELS`` (block-aligned) pixels is encoded
+    alone, in block ranges (``parallel.tiled.compress_image``); only the
+    v1 kernels, which carry no DC predictor in, refuse it.  A list of
+    images of several shapes is encoded one run of equal shapes at a time.
     """
     dev = resolve_device(device)
     if precision not in (transform.FAST, transform.EXACT):
@@ -155,6 +192,21 @@ def compress_batch_device(
         raise ValueError(f"unknown version {version!r}")
     if block_index and version != "v2":
         raise ValueError("block_index requires the v2 kernels")
+    kw = dict(precision=precision, block_index=block_index,
+              index_stride=index_stride, device=dev, version=version)
+    if (isinstance(images, (list, tuple)) and true_shape is None
+            and len({np.shape(im) for im in images}) > 1):
+        # images of several shapes: each run of one shape is a batch
+        out: list[bytes] = []
+        start = 0
+        for i in range(1, len(images) + 1):
+            if (i == len(images)
+                    or np.shape(images[i]) != np.shape(images[start])):
+                out += compress_batch_device(
+                    np.stack(images[start:i]), quality,
+                    bits_per_pixel_budget, **kw)
+                start = i
+        return out
     if isinstance(images, torch.Tensor):
         if images.dtype != torch.uint8 or images.ndim != 3:
             raise ValueError("expected a (B, H, W) uint8 tensor")
@@ -176,6 +228,14 @@ def compress_batch_device(
         b, h, w = images.shape
     if b < 1 or h < 8 or w < 8:
         raise ValueError(f"empty batch or image ({b}x{h}x{w})")
+    if h * w > MAX_PIXELS and version == "v2":
+        # each image alone, in block ranges that carry the DC predictor
+        from .parallel.tiled import compress_image
+
+        return [compress_image(im, (th, tw), int(quality), precision,
+                               block_index, index_stride,
+                               bits_per_pixel_budget, dev)
+                for im in images]
     check_pixels(h, w)
     per = MAX_PIXELS // (h * w)
     if b > per:
@@ -185,9 +245,7 @@ def compress_batch_device(
             data for i in range(0, b, per)
             for data in compress_batch_device(
                 images[i:i + per], quality, bits_per_pixel_budget,
-                precision=precision, block_index=block_index,
-                index_stride=index_stride, true_shape=(th, tw), device=dev,
-                version=version)
+                true_shape=(th, tw), **kw)
         ]
     quality = int(quality)
     nb = (h // 8) * (w // 8)
