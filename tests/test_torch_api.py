@@ -1,6 +1,7 @@
 """Public API of the port: routing, validation, the device rule, and its
 independence from JAX and from the JAX package."""
 
+import pathlib
 import subprocess
 import sys
 
@@ -171,6 +172,11 @@ def test_build_key_follows_the_sources_and_the_headers(tmp_path, monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    # the conformance scripts too (their entry points run under __main__)
+    scripts = [str(pathlib.Path(__file__).resolve().parent.parent / "scripts"
+                   / f"{name}.py")
+               for name in ("torch_hw_adversarial", "torch_hw_quality_sweep",
+                            "torch_scaling_bench")]
     code = (
         "import sys, numpy as np\n"
         "import tinyimgcodec_tpu_torch as t\n"
@@ -195,7 +201,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "tinyimgcodec_tpu_torch.cli.encode, "
         "tinyimgcodec_tpu_torch.cli.convert, "
         "tinyimgcodec_tpu_torch.cli.view, "
-        "tinyimgcodec_tpu_torch.cli.benchmark\n"
+        "tinyimgcodec_tpu_torch.cli.benchmark, "
+        "tinyimgcodec_tpu_torch.conformance\n"
+        "import importlib.util\n"
+        f"for name in {scripts!r}:\n"
+        "    spec = importlib.util.spec_from_file_location(name, name)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "img = (np.arange(64 * 64).reshape(64, 64) % 251).astype(np.uint8)\n"
         "from tinyimgcodec_tpu_torch.parallel import make_mesh, tiled\n"
         "assert tiled.encode_tiled(img, 50, mesh=make_mesh(device='cpu')) "

@@ -771,3 +771,14 @@ def test_parallel_paths_on_the_card(cuda, monkeypatch):
                           decompress_batch(streams, device=cuda))
     assert all(np.array_equal(a, container.decompress(s)) for a, s in zip(
         stream.decompress_stream(streams, chunk=2, device=cuda), streams))
+
+
+def test_adversarial_battery_on_the_card(cuda):
+    """The conformance battery at 128x128 on the kernels: every check
+    passes (bytes and pixels equal to the oracle, the q=99 refusal, the
+    capacity edges), and every kernel ran in it."""
+    from tinyimgcodec_tpu_torch import conformance
+
+    rec = conformance.adversarial(cuda, 128)
+    assert conformance.failed_names(rec) == []
+    assert all(v >= 1 for v in rec["launches"].values()), rec["launches"]

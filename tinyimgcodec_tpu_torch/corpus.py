@@ -1,13 +1,28 @@
-"""Deterministic synthetic test corpus.
+"""Test-corpus loading (the reference's data/ images, with fallback).
 
-Stands in for the reference's 49 numbered 512x512 grayscale images with
-images of similar statistics, generated from fixed seeds; and encoded
-blocks of any bit lengths for the stream assembly.
+The reference ships 49 numbered 512x512 grayscale GIFs plus lenna.gif in
+its ``data/`` directory.  The port looks for that directory at
+``REFERENCE_DATA``, ``data/`` at the root of the checkout (it reads
+nothing outside its checkout).  When it is there the loaders read it
+(with Pillow, imported only then: a corpus that cannot be read raises,
+it is never replaced by the synthetic images); otherwise a deterministic
+synthetic corpus of similar statistics, generated from fixed seeds, stands
+in, as in the JAX package.  Also: encoded blocks of any bit lengths for
+the stream assembly.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+REFERENCE_DATA = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
+
+# name -> corpus file, as the reference's figure script names them:
+# Lenna = lenna.gif, Babara = 1.gif, Baboon = 47.gif
+NAMED_IMAGES = {"Lenna": "lenna.gif", "Babara": "1.gif", "Baboon": "47.gif"}
 
 
 def synthetic_corpus(n: int = 49, size: int = 512) -> np.ndarray:
@@ -26,6 +41,34 @@ def synthetic_corpus(n: int = 49, size: int = 512) -> np.ndarray:
         )
         out[i] = np.clip(img, 0, 255).astype(np.uint8)
     return out
+
+
+def corpus_available() -> bool:
+    return os.path.isdir(REFERENCE_DATA)
+
+
+def load_corpus(limit: int | None = None) -> np.ndarray:
+    """(N, 512, 512) uint8: the 49 numbered corpus images (or synthetic)."""
+    if not corpus_available():
+        return synthetic_corpus(limit or 49)
+    from PIL import Image
+
+    n = 49 if limit is None else min(limit, 49)
+    out = []
+    for i in range(1, n + 1):
+        path = os.path.join(REFERENCE_DATA, f"{i}.gif")
+        out.append(np.asarray(Image.open(path).convert("L")))
+    return np.stack(out)
+
+
+def load_named(name: str) -> np.ndarray:
+    """One named image of ``NAMED_IMAGES`` (or ``synthetic_corpus(1)[0]``)."""
+    if not corpus_available():
+        return synthetic_corpus(1)[0]
+    from PIL import Image
+
+    path = os.path.join(REFERENCE_DATA, NAMED_IMAGES[name])
+    return np.asarray(Image.open(path).convert("L"))
 
 
 def blocks_of_random_bits(image_bits, seed: int = 0, from_bit0: bool = False):
