@@ -111,7 +111,7 @@ from tinyimgcodec_tpu_torch.conformance import (  # noqa: E402
     auto_table_route, ctas_past_window,
 )
 from tinyimgcodec_tpu_torch.corpus import (  # noqa: E402
-    blocks_of_random_bits, synthetic_corpus,
+    blocks_of_random_bits, seeded_image, synthetic_corpus,
 )
 from tinyimgcodec_tpu_torch.device import card_info  # noqa: E402
 from tinyimgcodec_tpu_torch.engine import (  # noqa: E402
@@ -1728,22 +1728,6 @@ def phase_auto_table(corpus: np.ndarray) -> tuple[dict, int, list]:
     return per_path, worst, streams
 
 
-def seeded_image(h: int, w: int, seed: int) -> np.ndarray:
-    """An (h, w) uint8 image made from a seed as the corpus images are:
-    waves, a checker of random cells and noise (float32 throughout)."""
-    rng = np.random.default_rng(seed)
-    y = np.arange(h, dtype=np.float32)[:, None]
-    x = np.arange(w, dtype=np.float32)[None, :]
-    fx, fy = rng.uniform(8, 30, 2)
-    img = (110.0 + 70.0 * np.sin(2 * np.pi * (fx * x / w + rng.random()))
-           * np.cos(2 * np.pi * (fy * y / h + rng.random()))
-           ).astype(np.float32)
-    img += 30.0 * ((x // rng.integers(20, 60) + y // rng.integers(20, 60))
-                   % 2)
-    img += rng.standard_normal((h, w), dtype=np.float32) * 5.0
-    return np.clip(img, 0, 255).astype(np.uint8)
-
-
 def host_ms(fn, reps: int) -> float:
     """Median host milliseconds of ``fn()`` between synchronisations,
     after one warm call."""
@@ -2028,7 +2012,10 @@ def phase_sharded(corpus: np.ndarray, big: dict, exact: list[bytes]) -> dict:
          "== compress_batch's bytes (exact, fast, no trailer); "
          "decompress_batch_sharded == decompress_batch",
          unverified="NCCL at a world above one: NCCL puts no two ranks on "
-         "one device, and this machine has one card")
+         "one device, and this script runs on one card; "
+         "scripts/torch_multicard.py checks NCCL at worlds 2 and 4, one "
+         "card a rank, and every card of the machine, and writes "
+         "reports/torch_multicard.json")
     return per_path
 
 

@@ -1,0 +1,712 @@
+#!/usr/bin/env python3
+"""The port on every card of one machine and over NCCL ranks
+-> reports/torch_multicard.json.
+
+The several-card counterpart of the JAX package's
+``__graft_entry__.py:dryrun_multichip`` and of ``chip_smoke.py``'s
+``sharded`` phase (which has one card and so runs NCCL only at a world of
+one).  It needs at least two cards: with fewer it exits 2 and writes
+nothing.  It builds the kernels and ``native/`` once, before any rank is
+spawned, then runs these phases, one JSON line each:
+
+- ``cards``: every card's index, name and power limit
+  (``nvidia-smi --query-gpu=name,power.limit``, in index order) and the
+  topology (``nvidia-smi topo -m``), the host's cores, the card count;
+- ``per_card``: one process runs on each card ``k`` in turn while its
+  current card stays 0: ``compress_batch`` of the 49 x 512 x 512 corpus
+  at q=50, exact and fast (sha256 of the streams against ``PERF.md``'s),
+  ``decompress_batch`` of the exact streams (pixels == the oracle's, every
+  image on the kernel leg), one auto-table ``compress`` (== the oracle),
+  ``compress_stream`` (== the fast batch), and each of the six kernel
+  wrappers against its plain version (``conformance.kernels_vs_plain``),
+  its outputs also bit for bit equal to card 0's;
+- ``nccl``: ``parallel.spawn`` at worlds 2 and 4, NCCL, one card a rank:
+  the ranks' current cards are distinct and are ``range(world)``;
+  ``encode_tiled`` of a 7680x4320 image (host and device assembly) ==
+  the oracle's payload; ``compress_batch_sharded`` exact and fast ==
+  ``compress_batch``; ``decompress_batch_sharded`` == ``decompress_batch``;
+  ``compress_stream`` on each rank's card == the fast batch; every rank
+  launched ``exact_transform``, ``encode2``, ``place`` and
+  ``entropy_decode``;
+- ``two_cuts`` (in the largest world's spawn): a 15360x8640 image (2 073
+  600 blocks; at world 4 each rank's 518 400 blocks are two kernel calls
+  of 262 144 + 256 256) through ``encode_tiled`` exact and fast == the
+  one-card ``compress`` bytes; its exact stream decoded on one card ==
+  the one-card stream's pixels;
+- ``failure``: ``compress_batch_sharded`` at q=99 of the noise image of
+  ``conformance.contents`` at the largest world: every rank raises the
+  table-range ``ValueError``, ``spawn`` raises, in under 60 s;
+- ``scaling`` at 1, 2 and 4 NCCL ranks (host clock, synchronised, a warm
+  step, then ``--reps`` steps, each begun together on every rank): weak
+  scaling of ``compress_batch_sharded`` (49 corpus images a rank, exact
+  and fast), strong scaling of the 7680x4320 ``encode_tiled`` (exact) and
+  of ``decompress_batch_sharded`` of the corpus; each rank's own encode
+  of its 49 images and decode of the 49 streams with no collective beside
+  it (``local_exact``, ``local_decode``); MP/s and efficiency against one
+  rank, each rank's times and CPU seconds.
+
+Every check is recorded (``checks``: ``phase``, ``name``, ``passed``);
+a failed one does not stop the run, and the script exits 0 only if all
+passed.  The last line is ``{"ok": true, ...}`` only then.
+
+``--rehearse`` runs the same code on the CPU at a tiny size, with gloo
+ranks and the kernels' plain versions (a lowered ``pipeline.MAX_PIXELS``
+gives ``two_cuts`` its two calls a rank), to find faults before the
+cards are used; it ends with ``{"ok": false, "rehearsal": true}`` and
+exits 1.
+
+Usage:
+    python3 scripts/torch_multicard.py [--reps 20] [--out PATH]
+        [--phases per_card,nccl,two_cuts,failure,scaling]
+    python3 scripts/torch_multicard.py --rehearse [--out PATH]
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import time
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from tinyimgcodec_tpu_torch import (  # noqa: E402
+    api, conformance, container, native, pipeline,
+)
+from tinyimgcodec_tpu_torch.corpus import (  # noqa: E402
+    seeded_image, synthetic_corpus,
+)
+from tinyimgcodec_tpu_torch.device import card_lines  # noqa: E402
+from tinyimgcodec_tpu_torch.engine import Engine  # noqa: E402
+from tinyimgcodec_tpu_torch.ops import _build  # noqa: E402
+from tinyimgcodec_tpu_torch.parallel import (  # noqa: E402
+    RankFailure, spawn, tiled,
+)
+from tinyimgcodec_tpu_torch.parallel.batch import (  # noqa: E402
+    compress_batch_sharded, decompress_batch_sharded,
+)
+from tinyimgcodec_tpu_torch.parallel.stream import (  # noqa: E402
+    compress_stream,
+)
+
+QUALITY = 50
+# sha256 of the corpus streams on the card (PERF.md section 5): exact,
+# equal to the float64 oracle, and fast
+EXACT_SHA = "bc527ae862612df9f10296110178e615b0e1d32cabeafbca22922d17581d6133"
+FAST_SHA = "dcc29e818283cd09647bd85773969c24cd479dc0d5dba79b43b2469d78a47549"
+FAILURE_S = 60.0
+BASELINE_TARGET = ("BASELINE.json config 5: 0.8 scaling efficiency, the "
+                   "JAX package's target on its own devices; no bar here")
+PHASES = ("per_card", "nccl", "two_cuts", "failure", "scaling")
+
+
+def sizes(rehearse: bool) -> dict:
+    """The run's shapes: the corpus cell, the 8K frame, the 16K frame and
+    the pixel limit that cuts it (``None``: the pipeline's own)."""
+    if rehearse:
+        return {"corpus": (5, 64), "big": (72, 136), "huge": (96, 128),
+                "max_pixels": 64 * 26, "noise": 64}
+    return {"corpus": (49, 512), "big": (4320, 7680), "huge": (8640, 15360),
+            "max_pixels": None, "noise": 512}
+
+
+def sha(items) -> str:
+    h = hashlib.sha256()
+    for x in items:
+        h.update(x if isinstance(x, bytes) else np.ascontiguousarray(x)
+                 .tobytes())
+    return h.hexdigest()
+
+
+def payloads(streams: list[bytes], nb: int) -> list[bytes]:
+    """Indexed streams without their TICX trailers."""
+    return [s[:container.parse_block_index(s, nb)[2]] for s in streams]
+
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class Record:
+    """The report: phases, checks, ``all_passed``; one line a phase."""
+
+    def __init__(self, rehearse: bool):
+        self.t0 = time.perf_counter()
+        self.data = {"script": "scripts/torch_multicard.py",
+                     "rehearsal": rehearse, "phases": {}, "checks": [],
+                     "all_passed": True}
+
+    def check(self, phase: str, name: str, passed: bool, **extra) -> None:
+        passed = bool(passed)
+        self.data["checks"].append({"phase": phase, "name": name,
+                                    "passed": passed, **extra})
+        self.data["all_passed"] = self.data["all_passed"] and passed
+        if not passed:
+            print(json.dumps({"failed": f"{phase}: {name}", **extra},
+                             default=str), file=sys.stderr, flush=True)
+
+    def phase(self, name: str, **kw) -> None:
+        kw["at_s"] = round(time.perf_counter() - self.t0, 1)
+        self.data["phases"][name] = kw
+        failed = [c["name"] for c in self.data["checks"]
+                  if c["phase"] == name and not c["passed"]]
+        print(json.dumps({"phase": name, "failed_checks": failed, **kw},
+                         default=str), flush=True)
+
+
+def counts() -> dict:
+    return conformance.launch_counts()
+
+
+def since(before: dict) -> dict:
+    now = counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def device_info(rehearse: bool) -> dict:
+    """The card's index, name and power limit, its topology, the host's
+    cores (``nvidia-smi``, ``os.cpu_count``)."""
+    info = {"cores": os.cpu_count(), "torch": torch.__version__,
+            "cuda": torch.version.cuda}
+    if rehearse:
+        info.update(cards=["cpu rehearsal"], count=0)
+        return info
+
+    info["cards"] = [f"{k}, {line}" for k, line in enumerate(card_lines())]
+    # a record, not a check: nvidia-smi may refuse it inside a container
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60)
+    info["topology"] = {"exit": topo.returncode,
+                        "lines": (topo.stdout + topo.stderr).splitlines()}
+    info["count"] = torch.cuda.device_count()
+    info["nccl"] = ".".join(map(str, torch.cuda.nccl.version()))
+    shm = os.statvfs("/dev/shm")
+    info["dev_shm_bytes"] = shm.f_frsize * shm.f_blocks
+    return info
+
+
+# ------------------------------------------------------------- per card
+
+def phase_per_card(rec: Record, sz: dict, devices: list, refs: dict) -> None:
+    """Each device in turn from this one process (current card left at 0):
+    the corpus round trip, auto tables, the stream, the six kernels."""
+    corpus = refs["corpus"]
+    nb = (corpus.shape[1] // 8) * (corpus.shape[2] // 8)
+    rows, first = [], None
+    for dev in devices:
+        on_card = dev.type == "cuda"
+        label = str(dev)
+        before = counts()
+        t0 = time.perf_counter()
+        exact = api.compress_batch(corpus, QUALITY, precision="exact",
+                                   device=dev)
+        fast = api.compress_batch(corpus, QUALITY, precision="fast",
+                                  device=dev)
+        engine = Engine("exact", dev)
+        pixels = engine.decompress_batch(exact)
+        legs = dict(engine.decode_stats)
+        auto = api.compress(corpus[0], QUALITY,
+                            auto_generate_huffman_table=True, device=dev)
+        streamed = list(compress_stream(corpus, QUALITY, chunk=8, device=dev))
+        kern = conformance.kernels_vs_plain(corpus, QUALITY, dev)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        ran = since(before)
+        digest = {"exact": sha(exact), "fast": sha(fast),
+                  **kern["digests"]}
+        if first is None:
+            first = digest
+        want_exact = EXACT_SHA if on_card else refs["oracle_sha"]
+        rec.check("per_card", f"{label}: exact corpus sha256",
+                  digest["exact"] == want_exact, got=digest["exact"])
+        if on_card:
+            rec.check("per_card", f"{label}: fast corpus sha256",
+                      digest["fast"] == FAST_SHA, got=digest["fast"])
+        rec.check("per_card", f"{label}: decode == container.decompress",
+                  np.array_equal(pixels, refs["oracle_pixels"])
+                  and legs == {"kernel": len(exact), "host_entropy": 0,
+                               "host_decoder": 0}, legs=legs)
+        rec.check("per_card", f"{label}: auto-table compress == oracle",
+                  auto == refs["auto"])
+        rec.check("per_card", f"{label}: compress_stream == the fast batch",
+                  streamed == fast)
+        for c in kern["checks"]:
+            rec.check("per_card", f"{label}: {c['name']} == plain version",
+                      c["passed"], **{k: v for k, v in c.items()
+                                      if k not in ("name", "passed")})
+        rec.check("per_card", f"{label}: every output == {devices[0]}'s",
+                  digest == first,
+                  differing=[k for k in digest if digest[k] != first[k]])
+        row = {"device": label, "seconds": round(secs, 2),
+               "exact_sha256": digest["exact"], "fast_sha256": digest["fast"],
+               "decode_legs": legs}
+        if on_card:
+            cur = torch.cuda.current_device()
+            rec.check("per_card", f"{label}: current card stayed 0", cur == 0,
+                      current=cur)
+            rec.check("per_card", f"{label}: every kernel launched",
+                      all(v >= 1 for v in ran.values()), launches=ran)
+            peak = torch.cuda.max_memory_allocated(dev)
+            rec.check("per_card", f"{label}: tensors on this card", peak > 0,
+                      peak_bytes=peak)
+            row.update(launches=ran, peak_bytes=peak)
+        rows.append(row)
+    rec.phase("per_card", cards=rows, checked=(
+        "on each device, current card 0: compress_batch exact and fast "
+        "(sha256), decompress_batch == container.decompress on the kernel "
+        "leg, auto-table compress == the oracle, compress_stream == the "
+        "fast batch, six kernel wrappers == their plain versions and == "
+        "the first card's outputs"))
+
+
+# ---------------------------------------------------------------- ranks
+
+def nccl_rank(mesh, sz: dict, exact: list[bytes], two_cuts: bool) -> dict:
+    """One rank of phase ``nccl`` (and of ``two_cuts`` in the largest
+    world): sha256 of everything it computed, its card, its launches."""
+    on_card = mesh.device.type == "cuda"
+    if not on_card:
+        torch.set_num_threads(1)  # rehearsal: one core a rank
+    before = counts()
+    corpus = synthetic_corpus(*sz["corpus"])
+    big = seeded_image(*sz["big"], 8)
+    out = {"rank": mesh.rank, "size": mesh.size, "device": str(mesh.device),
+           "comm_device": str(mesh.comm_device),
+           "backend": torch.distributed.get_backend(mesh.group),
+           "current_device": torch.cuda.current_device() if on_card else None,
+           "local_rank_env": os.environ.get("LOCAL_RANK")}
+    t0 = time.perf_counter()
+    out["tiled_host"] = sha([tiled.encode_tiled(big, QUALITY, mesh=mesh)])
+    out["tiled_device"] = sha([tiled.encode_tiled(
+        big, QUALITY, mesh=mesh, assemble="device")])
+    out["sharded_exact"] = sha(compress_batch_sharded(
+        corpus, QUALITY, mesh=mesh, precision="exact"))
+    out["sharded_fast"] = sha(compress_batch_sharded(corpus, QUALITY,
+                                                     mesh=mesh))
+    out["decoded"] = sha([decompress_batch_sharded(exact, mesh=mesh)])
+    out["stream"] = sha(compress_stream(corpus, QUALITY, chunk=8,
+                                        device=mesh.device))
+    sync(mesh.device)
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = since(before)
+    if two_cuts:
+        if sz["max_pixels"]:
+            pipeline.MAX_PIXELS = sz["max_pixels"]
+        huge = seeded_image(*sz["huge"], 16)
+        nb = (huge.shape[0] // 8) * (huge.shape[1] // 8)
+        start, stop = tiled.block_range(nb, mesh.size, mesh.rank)
+        before = counts()
+        t0 = time.perf_counter()
+        exact_huge = tiled.encode_tiled(huge, QUALITY, mesh=mesh)
+        fast_huge = tiled.encode_tiled(huge, QUALITY, mesh=mesh,
+                                       precision="fast")
+        sync(mesh.device)
+        out["two_cuts"] = {
+            "blocks": stop - start, "calls": len(tiled.sub_ranges(start,
+                                                                  stop)),
+            "exact": sha([exact_huge]), "fast": sha([fast_huge]),
+            "seconds": time.perf_counter() - t0, "launches": since(before),
+            # rank 0 hands the stream back for the decode on one card
+            "exact_stream": exact_huge if mesh.rank == 0 else None,
+        }
+    return out
+
+
+def failure_rank(mesh, images: np.ndarray) -> list[bytes]:
+    """One rank of phase ``failure``: must raise."""
+    return compress_batch_sharded(images, 99, mesh=mesh, precision="exact")
+
+
+def _timed(fn, reps: int, mesh) -> dict:
+    """A warm step, then ``reps`` steps, each begun on every rank together
+    (an all-reduce first) and ended by a synchronise: host seconds and
+    the process's CPU seconds a step."""
+    fn()
+    wall, cpu = [], []
+    for _ in range(reps):
+        mesh.any(False)
+        sync(mesh.device)
+        t0, c0 = time.perf_counter(), time.process_time()
+        fn()
+        sync(mesh.device)
+        wall.append(time.perf_counter() - t0)
+        cpu.append(time.process_time() - c0)
+    return {"s": wall, "cpu_s": cpu}
+
+
+def scaling_rank(mesh, sz: dict, exact: list[bytes], reps: int) -> dict:
+    """One rank of phase ``scaling``: its step times in every row."""
+    if mesh.device.type == "cpu":
+        torch.set_num_threads(1)
+    corpus = synthetic_corpus(*sz["corpus"])
+    weak = np.concatenate([corpus] * mesh.size)  # this rank's group: corpus
+    big = seeded_image(*sz["big"], 8)
+    dev = mesh.device
+    rows = {
+        "weak_exact": _timed(lambda: compress_batch_sharded(
+            weak, QUALITY, mesh=mesh, precision="exact"), reps, mesh),
+        "weak_fast": _timed(lambda: compress_batch_sharded(
+            weak, QUALITY, mesh=mesh), reps, mesh),
+        "local_exact": _timed(lambda: pipeline.compress_batch_device(
+            corpus, QUALITY, precision="exact", device=dev), reps, mesh),
+        "local_decode": _timed(lambda: Engine("exact", dev).decompress_batch(
+            exact), reps, mesh),
+        "strong_tiled_exact": _timed(lambda: tiled.encode_tiled(
+            big, QUALITY, mesh=mesh), reps, mesh),
+        "strong_decode": _timed(lambda: decompress_batch_sharded(
+            exact, mesh=mesh), reps, mesh),
+    }
+    return {"rank": mesh.rank, "device": str(dev),
+            "threads": torch.get_num_threads(),
+            "omp_num_threads": os.environ.get("OMP_NUM_THREADS"),
+            "rows": rows}
+
+
+# --------------------------------------------------------------- phases
+
+def spawn_checked(rec: Record, phase: str, label: str, fn, world: int,
+                  backend: str, device, args: tuple):
+    """``spawn``; a rank that fails is a failed check (with every failed
+    rank's traceback) and gives ``None``."""
+    try:
+        return spawn(fn, world, backend=backend, device=device, args=args)
+    except RankFailure as e:
+        rec.check(phase, f"{label}: every rank ended", False,
+                  errors={r: tb[-2000:] for r, tb in e.errors.items()})
+        return None
+
+
+def phase_nccl(rec: Record, sz: dict, worlds: list[int], run: dict,
+               refs: dict) -> dict | None:
+    """Every world of ``worlds`` (the last also carries ``two_cuts``);
+    returns the last world's rank results."""
+    rows, per_path, last = [], {}, None
+    for world in worlds:
+        label = f"{run['backend']} x{world}"
+        with_cuts = world == worlds[-1] and "two_cuts" in run["phases"]
+        t0 = time.perf_counter()
+        ranks = spawn_checked(rec, "nccl", label, nccl_rank, world,
+                              run["backend"], run["device"],
+                              (sz, refs["exact"], with_cuts))
+        secs = time.perf_counter() - t0
+        if ranks is None:
+            continue
+        if run["on_card"]:
+            cards = [r["current_device"] for r in ranks]
+            rec.check("nccl", f"{label}: one card a rank, cards 0..{world - 1}",
+                      cards == list(range(world))
+                      and [r["device"] for r in ranks]
+                      == [f"cuda:{k}" for k in range(world)]
+                      and all(r["comm_device"] == r["device"] for r in ranks),
+                      cards=cards)
+        for r in ranks:
+            rl = f"{label} rank {r['rank']}"
+            rec.check("nccl", f"{rl}: mesh of the world over {run['backend']}",
+                      (r["size"], r["backend"]) == (world, run["backend"]))
+            for key in ("tiled_host", "tiled_device"):
+                rec.check("nccl", f"{rl}: encode_tiled {key[6:]} == oracle",
+                          r[key] == refs["tiled"])
+            rec.check("nccl", f"{rl}: compress_batch_sharded exact == "
+                      "compress_batch", r["sharded_exact"]
+                      == refs["sharded_exact"])
+            rec.check("nccl", f"{rl}: compress_batch_sharded fast == "
+                      "compress_batch", r["sharded_fast"]
+                      == refs["sharded_fast"])
+            rec.check("nccl", f"{rl}: decompress_batch_sharded == "
+                      "decompress_batch", r["decoded"] == refs["decoded"])
+            rec.check("nccl", f"{rl}: compress_stream on its card == the "
+                      "fast batch", r["stream"] == refs["stream"])
+            if run["on_card"]:
+                got = r["launches"]
+                rec.check("nccl", f"{rl}: launched exact_transform, encode2, "
+                          "place, entropy_decode", all(
+                              got[k] >= 1 for k in (
+                                  "exact_transform", "encode2_zz",
+                                  "encode2_pixels", "place",
+                                  "entropy_decode")), launches=got)
+            per_path[rl] = r["launches"]
+            rows.append({"ranks": rl, "device": r["device"],
+                         "current_device": r["current_device"],
+                         "rank_seconds": round(r["seconds"], 2)})
+        rows.append({"ranks": label, "spawn_seconds": round(secs, 1)})
+        last = ranks
+    rec.phase("nccl", backend=run["backend"], worlds=worlds, runs=rows,
+              launches_by_rank=per_path, checked=(
+                  "every rank: its own card; encode_tiled of the "
+                  f"{sz['big'][1]}x{sz['big'][0]} image (host and device "
+                  "assembly) == the oracle's payload; compress_batch_sharded "
+                  "exact and fast == compress_batch (no trailer); "
+                  "decompress_batch_sharded == decompress_batch; "
+                  "compress_stream == the fast batch; kernels launched"))
+    return last
+
+
+def phase_two_cuts(rec: Record, sz: dict, world: int, ranks, run: dict,
+                   dev0) -> None:
+    """The 16K image's rank results against one card's ``compress``; the
+    ranks' exact stream decoded on one card."""
+    h, w = sz["huge"]
+    huge = seeded_image(h, w, 16)
+    nb = (h // 8) * (w // 8)
+    saved = pipeline.MAX_PIXELS
+    if sz["max_pixels"]:
+        pipeline.MAX_PIXELS = sz["max_pixels"]
+    try:
+        t0 = time.perf_counter()
+        one = api.compress(huge, QUALITY, device=dev0)
+        one_fast = api.compress(huge, QUALITY, precision="fast",
+                                block_index=False, device=dev0)
+        one_secs = time.perf_counter() - t0
+    finally:
+        pipeline.MAX_PIXELS = saved
+    one_exact = payloads([one], nb)[0]
+    want = {"exact": sha([one_exact]), "fast": sha([one_fast])}
+    rows = []
+    for r in ranks:
+        tc = r["two_cuts"]
+        rl = f"{run['backend']} x{world} rank {r['rank']}"
+        for mode in ("exact", "fast"):
+            rec.check("two_cuts", f"{rl}: {mode} == one card's compress",
+                      tc[mode] == want[mode])
+        rec.check("two_cuts", f"{rl}: two kernel calls a rank",
+                  tc["calls"] == 2
+                  and (not run["on_card"]
+                       or tc["launches"]["encode2_zz"] == 2 * tc["calls"]),
+                  blocks=tc["blocks"], calls=tc["calls"],
+                  launches=tc["launches"] if run["on_card"] else None)
+        rows.append({"rank": r["rank"], "blocks": tc["blocks"],
+                     "calls": tc["calls"], "seconds": round(tc["seconds"], 2)})
+    stream = ranks[0]["two_cuts"]["exact_stream"]
+    engine = Engine("exact", dev0)
+    t0 = time.perf_counter()
+    got = engine.decompress(stream)
+    legs = dict(engine.decode_stats)
+    want_px = engine.decompress(one)
+    want_legs = dict(engine.decode_stats)
+    dec_secs = time.perf_counter() - t0
+    rec.check("two_cuts", "ranks' exact stream decoded on one card == one "
+              "card's stream's pixels", np.array_equal(got, want_px)
+              and got.shape == (h, w), legs=legs, one_card_legs=want_legs)
+    rec.phase("two_cuts", image=[w, h], blocks=nb, world=world, ranks=rows,
+              one_card_compress_seconds=round(one_secs, 2),
+              decode_seconds=round(dec_secs, 2),
+              exact_bytes=len(one_exact), fast_bytes=len(one_fast),
+              max_pixels=pipeline.MAX_PIXELS if not sz["max_pixels"]
+              else sz["max_pixels"])
+
+
+def phase_failure(rec: Record, sz: dict, world: int, run: dict) -> None:
+    """q=99 of the noise image over ``world`` ranks: every rank raises,
+    and the phase ends in under ``FAILURE_S`` (a refusal on one rank
+    only is ``tests/test_torch_multicard.py``'s, on gloo ranks)."""
+    noise = conformance.contents(sz["noise"], sz["noise"])["noise"]
+    t0 = time.perf_counter()
+    try:
+        spawn(failure_rank, world, backend=run["backend"],
+              device=run["device"], args=(noise[None],))
+        errors = {}
+    except RankFailure as e:
+        errors = e.errors
+    secs = time.perf_counter() - t0
+    raised = sorted(r for r, tb in errors.items()
+                    if conformance.TABLE_RANGE in tb)
+    rec.check("failure", "every rank raised the table-range ValueError in "
+              f"under {FAILURE_S:.0f} s", raised == list(range(world))
+              and len(errors) == world and secs < FAILURE_S,
+              raised=raised, seconds=secs)
+    rec.phase("failure", world=world, backend=run["backend"],
+              ranks_raised=raised, seconds=round(secs, 2),
+              last_lines={r: tb.strip().splitlines()[-1]
+                          for r, tb in errors.items()})
+
+
+def phase_scaling(rec: Record, sz: dict, worlds: list[int], run: dict,
+                  refs: dict, reps: int, card_lines: list[str]) -> None:
+    """Weak and strong scaling rows at each world; no bar."""
+    corpus_mp = sz["corpus"][0] * sz["corpus"][1] ** 2 / 1e6
+    # the megapixels of one step: of each rank's 49 images in the weak
+    # rows, of the one image or batch in the strong ones
+    per_rank = ("weak_exact", "weak_fast", "local_exact", "local_decode")
+    strong = {"strong_tiled_exact": sz["big"][0] * sz["big"][1] / 1e6,
+              "strong_decode": corpus_mp}
+    rows, base = [], {}
+    for world in worlds:
+        label = f"{run['backend']} x{world}"
+        t0 = time.perf_counter()
+        ranks = spawn_checked(rec, "scaling", label, scaling_rank, world,
+                              run["backend"], run["device"],
+                              (sz, refs["exact"], reps))
+        secs = time.perf_counter() - t0
+        if ranks is None:
+            continue
+        row = {"procs": world, "backend": run["backend"],
+               "cards": card_lines[:world] if run["on_card"] else None,
+               "cores": os.cpu_count(), "steps": reps,
+               "spawn_and_join_s": secs, "threads": ranks[0]["threads"],
+               "omp_num_threads": ranks[0]["omp_num_threads"]}
+        for key in (*per_rank, *strong):
+            # a step ends when its slowest rank does
+            step = [max(r["rows"][key]["s"][i] for r in ranks)
+                    for i in range(reps)]
+            med = float(np.median(step))
+            total = world * corpus_mp if key in per_rank else strong[key]
+            mps = total / med
+            base.setdefault(key, mps)
+            row[key] = {
+                "step_s_median": med, "step_s_min": min(step),
+                "step_s_max": max(step),
+                "step_s_p10_p90": [float(np.percentile(step, 10)),
+                                   float(np.percentile(step, 90))],
+                "mp_per_step": total, "mps": mps,
+                "efficiency": mps / (world * base[key]),
+                "rank_s_median": [float(np.median(r["rows"][key]["s"]))
+                                  for r in ranks],
+                "rank_cpu_s_median": [float(np.median(
+                    r["rows"][key]["cpu_s"])) for r in ranks],
+                "step_s": step,
+            }
+        rows.append(row)
+        print(json.dumps({"scaling": label, **{
+            k: [round(row[k]["mps"], 1), round(row[k]["efficiency"], 3)]
+            for k in (*per_rank, *strong)}}), file=sys.stderr, flush=True)
+    rec.check("scaling", "a row at every world", len(rows) == len(worlds),
+              worlds=[r["procs"] for r in rows])
+    rec.phase("scaling", rows=rows, baseline_target=BASELINE_TARGET, note=(
+        "host clock around synchronised steps, each begun on every rank "
+        "together (an all-reduce), a warm step first; a step is its "
+        "slowest rank; efficiency = MP/s(N) / (N * MP/s(1)) for the weak "
+        "rows (49 corpus images a rank) and the strong ones (the "
+        "7680x4320 tiled encode, the decode of the 49 corpus streams); "
+        "local_exact / local_decode: each rank's exact encode of its 49 "
+        "images / decode of the 49 streams with no collective, run while "
+        "the other ranks run theirs (the host's share); rank_cpu_s: the "
+        "rank's process CPU seconds a step, all its threads"))
+
+
+# ----------------------------------------------------------------- main
+
+def main(argv: list[str] | None = None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--rehearse", action="store_true",
+                   help="gloo ranks on the CPU at a tiny size")
+    p.add_argument("--reps", type=int, default=None,
+                   help="timed steps a scaling row (default 20; 2 when "
+                   "rehearsing)")
+    p.add_argument("--phases", default=",".join(PHASES))
+    p.add_argument("--out", default=str(REPO / "reports"
+                                        / "torch_multicard.json"))
+    args = p.parse_args(argv)
+    rehearse = args.rehearse
+    phases = args.phases.split(",")
+    reps = args.reps or (2 if rehearse else 20)
+    if not rehearse:
+        if not torch.cuda.is_available():
+            print("torch_multicard: no CUDA device available",
+                  file=sys.stderr)
+            return 2
+        if torch.cuda.device_count() < 2:
+            print("torch_multicard: needs at least two cards, found "
+                  f"{torch.cuda.device_count()}", file=sys.stderr)
+            return 2
+    sz = sizes(rehearse)
+    rec = Record(rehearse)
+    rec.data["sizes"] = sz
+
+    t0 = time.perf_counter()
+    native.lib()
+    if not rehearse:
+        _build.build_all()  # before any spawn: the ranks load, never build
+    build_s = time.perf_counter() - t0
+
+    info = device_info(rehearse)
+    rec.data["machine"] = info
+    rec.phase("cards", build_seconds=round(build_s, 2), **info)
+    count = info["count"]
+    if rehearse:
+        devices = [torch.device("cpu")]
+        run = {"backend": "gloo", "device": "cpu", "on_card": False}
+        worlds = [2, 4]
+    else:
+        devices = [torch.device("cuda", k) for k in range(count)]
+        run = {"backend": "nccl", "device": None, "on_card": True}
+        worlds = [w for w in (2, 4) if w <= count]
+    run["phases"] = phases
+    dev0 = devices[0]
+
+    # the references, on the first device and from the oracle, as far as
+    # the phases run need them
+    corpus = synthetic_corpus(*sz["corpus"])
+    nb = (corpus.shape[1] // 8) * (corpus.shape[2] // 8)
+    t0 = time.perf_counter()
+    exact = api.compress_batch(corpus, QUALITY, precision="exact",
+                               device=dev0)
+    refs = {
+        "corpus": corpus, "exact": exact,
+        "oracle_sha": sha(container.compress(im, QUALITY, block_index=True)
+                          for im in corpus) if rehearse else EXACT_SHA,
+        "oracle_pixels": np.stack([container.decompress(s) for s in exact]),
+        "auto": container.compress(corpus[0], QUALITY, True,
+                                   block_index=True),
+    }
+    if "nccl" in phases or "two_cuts" in phases:
+        big = seeded_image(*sz["big"], 8)
+        oracle_big = container.compress(big, QUALITY)
+        refs.update(
+            tiled=sha([oracle_big]),
+            sharded_exact=sha(payloads(exact, nb)),
+            sharded_fast=sha(api.compress_batch(
+                corpus, QUALITY, precision="fast", block_index=False,
+                device=dev0)),
+            decoded=sha([api.decompress_batch(exact, device=dev0)]),
+            stream=sha(api.compress_batch(corpus, QUALITY, precision="fast",
+                                          device=dev0)),
+        )
+        rec.check("references", "one card's 8K compress == the oracle",
+                  payloads([api.compress(big, QUALITY, device=dev0)],
+                           (big.shape[0] // 8) * (big.shape[1] // 8))[0]
+                  == oracle_big)
+    rec.data["references_seconds"] = round(time.perf_counter() - t0, 1)
+
+    if "per_card" in phases:
+        phase_per_card(rec, sz, devices, refs)
+    ranks = None
+    if "nccl" in phases or "two_cuts" in phases:
+        ranks = phase_nccl(rec, sz, worlds, run, refs)
+    if "two_cuts" in phases and ranks is not None:
+        phase_two_cuts(rec, sz, worlds[-1], ranks, run, dev0)
+    if "failure" in phases:
+        phase_failure(rec, sz, worlds[-1], run)
+    if "scaling" in phases:
+        phase_scaling(rec, sz, [1, *worlds], run, refs, reps,
+                      info["cards"])
+
+    rec.data["phases_run"] = phases
+    rec.data["seconds"] = round(time.perf_counter() - rec.t0, 1)
+    out = pathlib.Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(rec.data, indent=1, default=str))
+    failed = [f"{c['phase']}: {c['name']}" for c in rec.data["checks"]
+              if not c["passed"]]
+    print(json.dumps({"checks": len(rec.data["checks"]), "failed": failed,
+                      "report": str(out)}), flush=True)
+    print("; ".join(info["cards"]), flush=True)
+    if rehearse:
+        print(json.dumps({"ok": False, "rehearsal": True}), flush=True)
+        return 1
+    ok = rec.data["all_passed"] and phases == list(PHASES)
+    print(json.dumps({"ok": ok, "cards": count,
+                      "worlds": worlds}), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,9 +16,10 @@ median over ``--reps`` after one warm step.  Every rank's streams are
 checked against one process's ``compress_batch`` of the same images; a
 difference makes the script exit 1.
 
-Ranks that share one card (``--device cuda`` on a one-card machine puts
-every rank on ``cuda:0``) share its queue and its host, so their rows
-measure no scaling; nor do CPU ranks past the machine's cores.  The
+With ``--device cuda`` rank r runs on card ``r % device_count``.  Ranks
+that share one card (every rank on ``cuda:0`` on a one-card machine)
+share its queue and its host, so their rows measure no scaling; nor do
+CPU ranks past the machine's cores.  The
 record carries ``cores`` and the card so that a reader can judge.  NCCL
 puts no two ranks on one card, so an NCCL world larger than the cards is
 recorded as skipped.
@@ -48,7 +49,7 @@ import torch  # noqa: E402
 from tinyimgcodec_tpu_torch import api  # noqa: E402
 from tinyimgcodec_tpu_torch.corpus import synthetic_corpus  # noqa: E402
 from tinyimgcodec_tpu_torch.device import (  # noqa: E402
-    card_info, resolve_device,
+    card_info, card_lines, resolve_device,
 )
 from tinyimgcodec_tpu_torch.parallel import spawn  # noqa: E402
 from tinyimgcodec_tpu_torch.parallel.batch import (  # noqa: E402
@@ -111,7 +112,8 @@ def main(argv: list[str] | None = None) -> int:
                     f"{torch.cuda.device_count()}")})
                 continue
             t0 = time.perf_counter()
-            ranks = spawn(_rank, n, backend=backend, device=dev,
+            # "cuda" (no index): rank r on card r % device_count
+            ranks = spawn(_rank, n, backend=backend, device=args.device,
                           args=(args.per_proc, args.size, args.reps))
             spawn_s = time.perf_counter() - t0
             images = synthetic_corpus(n * args.per_proc, args.size)
@@ -129,6 +131,8 @@ def main(argv: list[str] | None = None) -> int:
                 base = mps / n
             row = {"procs": n, "mps": mps, "efficiency": mps / (n * base),
                    "step_s_median": med, "step_s": step,
+                   "rank_s_median": [float(np.median(r["times"]))
+                                     for r in ranks],
                    "spawn_and_join_s": spawn_s, "sha256_streams": want,
                    "streams_equal_one_process": equal}
             if dev.type == "cpu" and n > cores:
@@ -141,6 +145,7 @@ def main(argv: list[str] | None = None) -> int:
     record = {
         "benchmark": "weak_scaling_sharded_encode",
         "card": card_info() if dev.type == "cuda" else None,
+        "cards": card_lines() if dev.type == "cuda" else None,
         "device": str(dev),
         "cores": cores,
         "quality": QUALITY,

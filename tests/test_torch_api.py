@@ -176,7 +176,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     scripts = [str(pathlib.Path(__file__).resolve().parent.parent / "scripts"
                    / f"{name}.py")
                for name in ("torch_hw_adversarial", "torch_hw_quality_sweep",
-                            "torch_scaling_bench")]
+                            "torch_scaling_bench", "torch_multicard")]
     code = (
         "import sys, numpy as np\n"
         "import tinyimgcodec_tpu_torch as t\n"

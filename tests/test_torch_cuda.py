@@ -782,3 +782,64 @@ def test_adversarial_battery_on_the_card(cuda):
     rec = conformance.adversarial(cuda, 128)
     assert conformance.failed_names(rec) == []
     assert all(v >= 1 for v in rec["launches"].values()), rec["launches"]
+
+
+@pytest.fixture
+def two_cards(cuda):
+    """Cards 0 and 1, card 0 current (decided here, not at import)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    assert torch.cuda.current_device() == 0
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("quality", [50, 90])
+def test_kernels_on_another_card_equal_plain_versions(two_cards, quality):
+    """Every wrapper launched on ``cuda:1`` from a process whose current
+    card is 0 equals its plain version, and card 0's outputs bit for
+    bit."""
+    from tinyimgcodec_tpu_torch import conformance
+
+    imgs = np.stack([synthetic_image(136, 200, seed=s) for s in (4, 5, 6)])
+    on = [conformance.kernels_vs_plain(imgs, quality, d) for d in two_cards]
+    assert conformance.failed_names(on[1]) == []
+    assert on[1]["digests"] == on[0]["digests"]
+    assert torch.cuda.current_device() == 0
+
+
+def test_compress_on_another_card_equals_card_0(two_cards):
+    """``compress`` and ``decompress`` on ``cuda:1`` give card 0's bytes
+    and pixels (exact, fast, auto tables, a stream of chunks)."""
+    from tinyimgcodec_tpu_torch import compress
+    from tinyimgcodec_tpu_torch.parallel.stream import compress_stream
+
+    img = synthetic_image(203, 341, seed=8)
+    imgs = np.stack([synthetic_image(64, 72, seed=s) for s in range(5)])
+    got = []
+    for d in two_cards:
+        data = [compress(img, 50, device=d),
+                compress(img, 50, precision="fast", device=d),
+                compress(img, 50, auto_generate_huffman_table=True, device=d),
+                *compress_stream(imgs, 50, chunk=2, device=d)]
+        got.append((data, decompress(data[0], device=d)))
+    assert got[1][0] == got[0][0]
+    assert np.array_equal(got[1][1], got[0][1])
+    assert np.array_equal(got[0][1], container.decompress(got[0][0][0]))
+    assert torch.cuda.current_device() == 0
+
+
+def test_default_device_follows_the_current_card(two_cards):
+    """With card 1 made current, ``device=None`` encodes on card 1 with
+    card 1's tables (a cache keyed by an unindexed ``cuda`` would hand it
+    card 0's), and gives card 0's bytes."""
+    from tinyimgcodec_tpu_torch import compress
+
+    img = synthetic_image(64, 80, seed=9)
+    want = compress(img, 50, device=two_cards[0])
+    try:
+        torch.cuda.set_device(1)
+        got = compress(img, 50)
+        on_1 = CodecTables.build(50, "cuda").device
+    finally:
+        torch.cuda.set_device(0)
+    assert got == want and on_1 == two_cards[1]

@@ -33,8 +33,10 @@ from .device import resolve_device
 from .engine import KERNEL_BLOCK_BITS, Engine
 from .ops import encode1, encode2, entropy_decode, exact_transform, place
 from .ops import stitch
+from .ops import transform
 from .ops.entropy_decode import prepare_batch
-from .pipeline import compress_batch_device
+from .pipeline import compress_batch_device, exact_coefficients
+from .tables import CodecTables, DecodeTables
 
 # the content battery's qualities (hw_adversarial.py:76) and the sweep's
 # (hw_quality_sweep.py:41)
@@ -386,6 +388,125 @@ def quality_sweep(images, qualities=SWEEP_QUALITIES,
                         "psnr_gap_to_oracle_db"] <= FAST_PSNR_DB)
                 rows.append(row)
     return rows
+
+
+def _digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def kernels_vs_plain(images: np.ndarray, quality: int = 50,
+                     device: str | torch.device | None = None) -> dict:
+    """Each of the six kernel wrappers against its plain version on the
+    same tensors on ``device``, at the shapes ``compress_batch`` of
+    ``images`` (B, H, W) gives them (``chip_smoke.py``'s bars):
+
+    - ``exact_transform``: coefficients equal outside the blocks either
+      side flags (the tensor cores sum in another order), flags that
+      differ in at most 0.01 % of the blocks, and after the host
+      recompute the coefficients of the plain path on the CPU;
+    - ``encode2`` from those coefficients, ``place`` (at the batch's
+      budget), ``encode1`` from them and ``stitch`` (at the exact
+      capacity): every output equal;
+    - ``encode2`` from pixels: the float32 transform within one step of
+      the plain one on at most 1e-4 of the coefficients, and words equal
+      to the plain entropy coding of the kernel's own coefficients;
+    - ``entropy_decode`` of the images' exact indexed streams: ``zz`` and
+      the chunk flags equal.
+
+    Returns ``{"device", "checks", "all_passed", "digests"}``;
+    ``digests``: the sha256 of each wrapper's outputs, so that the same
+    call on another card can be held to this one's bit for bit.  On the
+    CPU each wrapper is its plain version, and the checks pass
+    trivially."""
+    dev = resolve_device(device)
+    record = {"device": str(dev), "checks": [], "all_passed": True,
+              "digests": {}}
+
+    def check(name: str, passed: bool, **extra) -> None:
+        record["checks"].append({"name": name, "passed": bool(passed),
+                                 **extra})
+        record["all_passed"] = record["all_passed"] and bool(passed)
+
+    def same(*pairs) -> bool:
+        return all(a.shape == b.shape and bool((a == b).all())
+                   for a, b in pairs)
+
+    images = np.ascontiguousarray(transform.pad_to_blocks(
+        np.asarray(images, dtype=np.uint8)))
+    b, h, w = images.shape
+    nb = (h // 8) * (w // 8)
+    tables = CodecTables.build(quality, dev)
+    blocks = transform.blockify(torch.from_numpy(images).to(dev)).reshape(
+        -1, 64).contiguous()
+    n = blocks.shape[0]
+    digests = record["digests"]
+
+    zk, fk = exact_transform.exact_transform(blocks, tables)
+    zp, fp = exact_transform.exact_transform_plain(blocks, tables)
+    either = (fk != 0) | (fp != 0)
+    zz = exact_coefficients(blocks, quality, tables)
+    gold = exact_coefficients(blocks.cpu(), quality,
+                              CodecTables.build(quality, "cpu"))
+    check("exact_transform", same((zz.cpu(), gold)) and not bool(
+        ((zk != zp).any(dim=0) & ~either).any())
+        and int((fk != fp).sum()) <= n // 10000,
+        flag_diff=int((fk != fp).sum()), flagged=int(either.sum()))
+    digests["exact_transform"] = _digest(zk, fk)
+
+    pk, mk, ok = encode2.encode2(zz, tables, nb, from_zz=True)
+    pp, mp, op = encode2.encode2_plain(zz, tables, nb, from_zz=True)
+    check("encode2_zz", same((pk, pp), (mk, mp), (ok, op)))
+    digests["encode2_zz"] = _digest(pk, mk, ok)
+
+    zf = encode2.fast_coefficients(blocks, tables)
+    step = (zf.to(torch.int64) - encode2.fast_coefficients_plain(
+        blocks, tables).to(torch.int64)).abs()
+    pk2, mk2, ok2 = encode2.encode2(blocks, tables, nb)
+    pp2, mp2, op2 = encode2.encode2_plain(zf, tables, nb, from_zz=True)
+    check("encode2_pixels", same((pk2, pp2), (mk2, mp2), (ok2, op2))
+          and int(step.max()) <= 1
+          and int((step != 0).sum()) <= 1e-4 * step.numel(),
+          transform_steps=int((step != 0).sum()))
+    digests["encode2_pixels"] = _digest(zf, pk2, mk2, ok2)
+
+    cap = -(-int(images.size * 4.0) // 32)
+    sk = place.place(pk, mk, nb, cap)
+    sp = place.place_plain(pk, mk, nb, cap)
+    check("place", same(*zip(sk, sp)), cap_words=cap)
+    digests["place"] = _digest(*sk)
+
+    wk, bk, o1k = encode1.encode1(zz.T.contiguous(), tables, nb,
+                                  from_zz=True)
+    wp, bp, o1p = encode1.encode1_plain(zz.T.contiguous(), tables, nb,
+                                        from_zz=True)
+    check("encode1", same((wk, wp), (bk, bp), (o1k, o1p)))
+    digests["encode1"] = _digest(wk, bk, o1k)
+
+    total = int(mk[0, -1]) + int(mk[1, -1])
+    tk = stitch.stitch(wk, bk, nb, -(-total // 32))
+    tp = stitch.stitch_plain(wk, bk, nb, -(-total // 32))
+    check("stitch", same(*zip(tk, tp)) and int(tk[2]) == total)
+    digests["stitch"] = _digest(*tk)
+
+    streams = compress_batch_device(images, quality, precision="exact",
+                                    block_index=True, device=dev)
+    prep = prepare_batch(streams)
+    dt = DecodeTables.build(prep["shape"][2], prep["scaled_dct"], dev,
+                            huffman=prep["tables"])
+    args = [torch.from_numpy(prep["words"].view(np.int32)).to(dev)] + [
+        torch.from_numpy(prep[k]).to(dev) for k in (
+            "chunk_start", "chunk_blocks", "chunk_block_base",
+            "chunk_end_lo", "chunk_end_hi")]
+    dk = entropy_decode.entropy_decode_chunks(*args, prep["nb_total"], dt)
+    dp = entropy_decode.entropy_decode_chunks_plain(*args, prep["nb_total"],
+                                                    dt)
+    check("entropy_decode", same(*zip(dk, dp)) and bool(dk[1].all()),
+          chunks=int(dk[1].numel()))
+    digests["entropy_decode"] = _digest(*dk)
+    return record
 
 
 def failed_names(record: dict) -> list[str]:

@@ -43,6 +43,22 @@ def synthetic_corpus(n: int = 49, size: int = 512) -> np.ndarray:
     return out
 
 
+def seeded_image(h: int, w: int, seed: int) -> np.ndarray:
+    """An (h, w) uint8 image made from a seed as the corpus images are:
+    waves, a checker of random cells and noise (float32 throughout)."""
+    rng = np.random.default_rng(seed)
+    y = np.arange(h, dtype=np.float32)[:, None]
+    x = np.arange(w, dtype=np.float32)[None, :]
+    fx, fy = rng.uniform(8, 30, 2)
+    img = (110.0 + 70.0 * np.sin(2 * np.pi * (fx * x / w + rng.random()))
+           * np.cos(2 * np.pi * (fy * y / h + rng.random()))
+           ).astype(np.float32)
+    img += 30.0 * ((x // rng.integers(20, 60) + y // rng.integers(20, 60))
+                   % 2)
+    img += rng.standard_normal((h, w), dtype=np.float32) * 5.0
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
 def corpus_available() -> bool:
     return os.path.isdir(REFERENCE_DATA)
 

@@ -50,7 +50,7 @@ from .huffman import (
 from .ops import transform
 from .ops.entropy_decode import entropy_decode_chunks, prepare_batch
 from .parallel import tiled
-from .pipeline import compress_batch_device, stream_bytes
+from .pipeline import TableRangeError, compress_batch_device, stream_bytes
 from .tables import CodecTables, DecodeTables, dequant_multipliers
 
 _CHUNK_KEYS = ("chunk_start", "chunk_blocks", "chunk_block_base",
@@ -174,7 +174,7 @@ class Engine:
             zz_list, CodecTables.from_spec(spec, quality, dev), None,
             bits_per_pixel_budget=4.0, with_offsets=block_index)
         if table_over:
-            raise ValueError("coefficient out of Huffman table range")
+            raise TableRangeError()
         words, total = tiled.concat_bits(
             [(w.cpu(), bits) for w, bits in segments], torch.device("cpu"))
         writer = BitWriter()

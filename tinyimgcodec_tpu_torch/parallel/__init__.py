@@ -16,4 +16,6 @@ The counterpart of the JAX package's ``parallel`` package on
   stream, and the chunked decode of a stream of streams.
 """
 
-from .mesh import Mesh, init_distributed, make_mesh, spawn  # noqa: F401
+from .mesh import (  # noqa: F401
+    Mesh, RankFailure, init_distributed, make_mesh, rank_card, spawn,
+)

@@ -24,7 +24,7 @@ from .. import container
 from ..engine import Engine
 from ..ops import transform
 from ..ops.entropy_decode import prepare_batch
-from ..pipeline import compress_batch_device
+from ..pipeline import TableRangeError, compress_batch_device
 from .mesh import Mesh, make_mesh
 
 
@@ -59,11 +59,20 @@ def _encode_groups(images, quality, mesh, precision, bits_per_pixel_budget,
     local, b = staged
     true_shape = (tuple(np.shape(images)[1:3]) if images is not None
                   else tuple(local.shape[1:]))
-    own = compress_batch_device(
-        local, quality, bits_per_pixel_budget, precision=precision,
-        block_index=block_index, index_stride=index_stride,
-        true_shape=true_shape, device=mesh.device,
-    )
+    refused = None
+    try:
+        own = compress_batch_device(
+            local, quality, bits_per_pixel_budget, precision=precision,
+            block_index=block_index, index_stride=index_stride,
+            true_shape=true_shape, device=mesh.device,
+        )
+    except TableRangeError as e:
+        refused = e
+    # a refusal of one rank's images is raised on every rank, before any
+    # of them waits in the gather for a rank that will not come
+    if mesh.any(refused is not None):
+        raise refused or TableRangeError(
+            "coefficient out of Huffman table range on another rank")
     return mesh.all_gather_bytes(own)[:b]
 
 

@@ -11,10 +11,12 @@ input.
 
 from __future__ import annotations
 
+import datetime
 import os
 import pickle
 import socket
 import tempfile
+import traceback
 
 import torch
 import torch.distributed as dist
@@ -37,7 +39,8 @@ class Mesh:
 
     @property
     def comm_device(self) -> torch.device:
-        """Where the collectives' tensors live."""
+        """Where the collectives' tensors live: the CPU under gloo, this
+        process's card (with its index) under NCCL."""
         if self.group is not None and dist.get_backend(self.group) == "gloo":
             return torch.device("cpu")
         return self.device
@@ -118,11 +121,23 @@ def make_mesh(n_devices: int | None = None, axis: str = "batch",
         "whole group or one process")
 
 
+def rank_card(rank: int) -> int:
+    """The card of the process of global rank ``rank`` on its host:
+    ``LOCAL_RANK`` where a launcher such as ``torchrun`` sets it (its
+    ranks may span several hosts), else ``rank % device_count`` (one
+    host)."""
+    local = os.environ.get("LOCAL_RANK")
+    if local is not None:
+        return int(local)
+    return rank % torch.cuda.device_count()
+
+
 def init_distributed(coordinator: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None,
                      backend: str | None = None,
-                     device: str | torch.device | None = None) -> None:
+                     device: str | torch.device | None = None,
+                     timeout: datetime.timedelta | None = None) -> None:
     """Join a process group (a no-op for one process).
 
     ``coordinator`` ``"host:port"`` of rank 0 (``None``: the ``env://``
@@ -131,24 +146,46 @@ def init_distributed(coordinator: str | None = None,
     defaults to ``WORLD_SIZE``.  ``backend``: ``"nccl"`` when the device
     is the card (``device=None``), ``"gloo"`` when asked for or when
     ``device="cpu"``.  Under NCCL this process's card is
-    ``process_id % device_count`` unless ``device`` names one."""
+    :func:`rank_card` of ``process_id`` unless ``device`` names one by
+    index; it becomes the current card.  ``timeout``: how long a
+    collective waits for the other ranks before it fails (``None``:
+    ``torch.distributed``'s default, ten minutes under NCCL)."""
     if num_processes is None:
         num_processes = int(os.environ.get("WORLD_SIZE", "1"))
     if num_processes <= 1:
         return
-    dev = resolve_device(device)
+    dev = torch.device("cuda") if device is None else torch.device(device)
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
     if process_id is None:
         process_id = int(os.environ["RANK"])
     if dev.type == "cuda":
+        resolve_device(dev)  # raises without a card
         torch.cuda.set_device(dev.index if dev.index is not None
-                              else process_id % torch.cuda.device_count())
+                              else rank_card(process_id))
+    kw = {} if timeout is None else {"timeout": timeout}
     dist.init_process_group(
         backend,
         init_method=f"tcp://{coordinator}" if coordinator else "env://",
-        world_size=num_processes, rank=process_id,
+        world_size=num_processes, rank=process_id, **kw,
     )
+
+
+class RankFailure(RuntimeError):
+    """Raised by :func:`spawn` when a rank failed.  ``errors``: each
+    failed rank's traceback, by rank (a rank ended by :func:`spawn`
+    because another failed is not in it; a rank that died without a
+    traceback leaves only ``{-1: what the join reported}``)."""
+
+    def __init__(self, errors: dict[int, str]):
+        self.errors = errors
+        super().__init__("".join(
+            f"\n-- rank {r} failed:\n{tb}" for r, tb in sorted(errors.items())))
+
+
+# seconds the other ranks get to end once one has failed (a rank that
+# raised after the same collective as the first ends within them)
+GRACE_S = 10.0
 
 
 def _free_port() -> int:
@@ -158,42 +195,68 @@ def _free_port() -> int:
 
 
 def _rank_main(rank: int, fn, world: int, backend: str, device: str,
-               port: int, out_dir: str, args: tuple) -> None:
+               port: int, out_dir: str, args: tuple,
+               timeout: datetime.timedelta) -> None:
     dev = torch.device(device)
     if dev.type == "cuda":
         if dev.index is None:
+            # one host: the launcher's LOCAL_RANK, if any, is not ours
             dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
+    path = os.path.join(out_dir, str(rank))
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
-                            world_size=world, rank=rank)
+                            world_size=world, rank=rank, timeout=timeout)
     try:
         result = fn(make_mesh(device=dev), *args)
+    except BaseException:
+        with open(path + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
     finally:
         dist.destroy_process_group()
-    path = os.path.join(out_dir, f"{rank}.pkl")
     with open(path + ".tmp", "wb") as f:
         pickle.dump(result, f)
-    os.replace(path + ".tmp", path)
+    os.replace(path + ".tmp", path + ".pkl")
 
 
 def spawn(fn, world: int, backend: str | None = None,
-          device: str | torch.device | None = None, args: tuple = ()):
+          device: str | torch.device | None = None, args: tuple = (),
+          timeout: datetime.timedelta = datetime.timedelta(seconds=120)):
     """Run ``fn(mesh, *args)`` in ``world`` new processes joined in one
     group on a free local TCP port; returns the ranks' results in rank
     order.  ``fn`` must be importable by name (the processes are started
-    with ``spawn``).  ``device``: what every rank computes on (``None`` =
-    the card: rank r takes card ``r % device_count``; ``"cuda:0"`` puts
-    them all on one card); ``backend`` as :func:`init_distributed` picks
-    it.  A rank that raises makes this raise once every rank has ended."""
-    dev = resolve_device(device)
+    with ``spawn``).  ``device``: what every rank computes on (``None``
+    or ``"cuda"`` = the card of each rank: rank r takes card
+    ``r % device_count``; ``"cuda:0"`` puts them all on one card);
+    ``backend`` as :func:`init_distributed` picks it.  ``timeout``: the
+    group's, how long a collective waits for a rank that does not come.
+
+    A rank that raises makes this raise :class:`RankFailure`, with the
+    traceback of every rank that raised: once one rank has failed, the
+    others get ``GRACE_S`` seconds to end, then are terminated."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    resolve_device(dev)  # raises on a card that is not there
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
     with tempfile.TemporaryDirectory(prefix="tic-spawn-") as out_dir:
-        torch.multiprocessing.start_processes(
+        ctx = torch.multiprocessing.start_processes(
             _rank_main,
-            args=(fn, world, backend, str(dev), _free_port(), out_dir, args),
-            nprocs=world, join=True, start_method="spawn",
+            args=(fn, world, backend, str(dev), _free_port(), out_dir, args,
+                  timeout),
+            nprocs=world, join=False, start_method="spawn",
         )
+        try:
+            while not ctx.join(grace_period=GRACE_S):
+                pass
+        except (torch.multiprocessing.ProcessRaisedException,
+                torch.multiprocessing.ProcessExitedException) as e:
+            errors = {}
+            for r in range(world):
+                err = os.path.join(out_dir, f"{r}.err")
+                if os.path.exists(err):
+                    with open(err) as f:
+                        errors[r] = f.read()
+            raise RankFailure(errors or {-1: str(e)}) from e
         results = []
         for r in range(world):
             with open(os.path.join(out_dir, f"{r}.pkl"), "rb") as f:

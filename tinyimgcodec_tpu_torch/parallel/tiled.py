@@ -166,7 +166,7 @@ def _encode(image, quality: int, mesh: Mesh, precision: str, assemble: str,
     segments, offsets, table_over = encode_ranges(
         zz_list, tables, dc_first, bits_per_pixel_budget, with_offsets)
     if mesh.any(table_over):
-        raise ValueError("coefficient out of Huffman table range")
+        raise pipeline.TableRangeError()
     where = dev if assemble == "device" else torch.device("cpu")
     words, bits = concat_bits(segments, where)
     if mesh.group is not None:

@@ -51,6 +51,14 @@ from .tables import CodecTables
 MAX_PIXELS = 16 << 20
 
 
+class TableRangeError(ValueError):
+    """A coefficient lies outside the Huffman tables, so no stream can be
+    written (the oracle refuses the image too)."""
+
+    def __init__(self, msg: str = "coefficient out of Huffman table range"):
+        super().__init__(msg)
+
+
 def _host_zz64(pixel_rows: np.ndarray, quality: int) -> np.ndarray:
     """(k, 64) pixel rows -> (k, 64) float64-quantized zig-zag rows: the
     oracle's arithmetic, used to settle tie-flagged blocks."""
@@ -128,7 +136,7 @@ def _pull_stream(launch, overflow: torch.Tensor, n: int, cap_words: int):
     stream, starts, total, table_over = _assemble(launch, overflow, n,
                                                   cap_words)
     if table_over:
-        raise ValueError("coefficient out of Huffman table range")
+        raise TableRangeError()
     return (stream_bytes(stream, total),
             starts.cpu().numpy().astype(np.int64), total)
 

@@ -31,6 +31,7 @@ import torch
 
 from . import constants as C
 from .constants import AAN_SCALES, ZIGZAG_ORDER, quant_divisors
+from .device import resolve_device
 from .huffman import HuffmanSpec
 
 
@@ -138,7 +139,7 @@ class CodecTables:
     @classmethod
     def build(cls, quality: int,
               device: str | torch.device = "cpu") -> "CodecTables":
-        return _build_cached(int(quality), str(torch.device(device)))
+        return _build_cached(int(quality), str(resolve_device(device)))
 
     @classmethod
     def from_spec(cls, spec, quality: int,
@@ -153,7 +154,7 @@ class CodecTables:
                                  "outside the kernels' range")
             spec = spec.device_tables()
         return _with_symbols(int(quality), symbol_words(*spec),
-                             str(torch.device(device)))
+                             str(resolve_device(device)))
 
 
 def _with_symbols(quality: int, words: tuple, device: str) -> CodecTables:
@@ -374,7 +375,7 @@ class DecodeTables:
         standard Annex K tables (cached per quality and device)."""
         if huffman is None:
             return _build_decode_cached(
-                int(quality), bool(scaled_dct), str(torch.device(device))
+                int(quality), bool(scaled_dct), str(resolve_device(device))
             )
         return cls.from_numpy(
             *huffman, fast_decode_matrix(int(quality), bool(scaled_dct)),
