@@ -45,6 +45,11 @@ gradient, flat and saturated images, stripes) at q 1-95 at 128x128 and
 and auto-table streams, and a quality sweep of three corpus images at q
 10-90, exact and fast, each against the oracle.
 
+The passes that ``torch_bench.py`` replays from CUDA graphs (phase
+``bench``): the corpus encode fast and exact, the full decode of the
+exact streams and the decode transform alone, each captured once and
+replayed 10 times, each graph's output held equal to an eager pass's.
+
 Output: one JSON object per phase, then the ``{"kernels": [...]}`` line,
 the card's name and power limit as ``nvidia-smi`` prints them, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed phase ends the
@@ -132,14 +137,13 @@ from tinyimgcodec_tpu_torch.pipeline import (  # noqa: E402
 from tinyimgcodec_tpu_torch.tables import (  # noqa: E402
     CodecTables, DecodeTables, dequant_multipliers, fast_decode_matrix,
 )
+import torch_bench  # noqa: E402
 
 DEV = torch.device("cpu" if REHEARSE else "cuda")
 KERNEL_MODULES = {
     "exact_transform": exact_transform, "encode2": encode2, "place": place,
     "encode1": encode1, "stitch": stitch, "entropy_decode": entropy_decode,
 }
-CHUNK_KEYS = ("chunk_start", "chunk_blocks", "chunk_block_base",
-              "chunk_end_lo", "chunk_end_hi")
 
 
 def sync() -> None:
@@ -248,14 +252,7 @@ def max_abs_diff(*pairs) -> int:
 def decode_inputs(streams):
     """``prepare_batch`` of the streams and its arrays on the device:
     (prep, [words, chunk arrays...], tables), or None if not eligible."""
-    prep = entropy_decode.prepare_batch(streams)
-    if prep is None:
-        return None
-    tables = DecodeTables.build(prep["shape"][2], prep["scaled_dct"], DEV,
-                                huffman=prep["tables"])
-    args = [torch.from_numpy(prep["words"].view(np.int32)).to(DEV)] + [
-        torch.from_numpy(prep[k]).to(DEV) for k in CHUNK_KEYS]
-    return prep, args, tables
+    return torch_bench.decode_inputs(streams, DEV)
 
 
 # ---------------------------------------------------------------- phases
@@ -2211,6 +2208,48 @@ def phase_conformance(corpus: np.ndarray) -> dict:
     return per_path
 
 
+# What the bench phase launches: each of its four passes once eagerly,
+# once to warm up on a side stream and once while its graph is captured.
+# A replay of the graph runs the captured kernels without a wrapper call,
+# so replays are not counted.
+BENCH_LAUNCHES = {"exact_transform": (3,), "encode2_pixels": (3,),
+                  "encode2_zz": (3,), "place": (6,), "entropy_decode": (3,)}
+
+
+def phase_bench(corpus: np.ndarray, exact: list[bytes]) -> dict:
+    """The passes ``torch_bench.py`` replays from CUDA graphs, at k=10 on
+    the corpus: the encode pass fast and exact (row 3), the full decode of
+    the exact streams (row 4) and the decode transform from their
+    host-decoded coefficients (row 5).  Each raises unless the graph's
+    output equals an eager pass's.  All between one reset and one reading
+    of the launch counters.  Returns the launches by path."""
+    k = 10
+    t0 = time.perf_counter()
+    arrays = [container.decompress_to_arrays(s, index_workers=1)
+              for s in exact]
+
+    def run():
+        mps = {}
+        for precision in ("fast", "exact"):
+            mps[f"encode {precision}"] = torch_bench.bench_device(
+                corpus, 50, precision, k=k, dev=DEV, reps=1)[0]
+        mps["decode"] = torch_bench.bench_decode_entropy_device(
+            exact, k=k, dev=DEV, reps=1)[0]
+        mps["decode transform"] = torch_bench.bench_decode_device(
+            arrays, k=k, dev=DEV, reps=1)[0]
+        return mps
+
+    per_path: dict = {}
+    try:
+        mps = counted("bench", run, BENCH_LAUNCHES, per_path)
+    except Exception as e:
+        fail(f"bench: {type(e).__name__}: {e}")
+    emit("bench", k=k, mp_per_s=mps, graph_equals_eager=True,
+         launches_by_path=per_path,
+         seconds=round(time.perf_counter() - t0, 1))
+    return per_path
+
+
 def phase_kernels(corpus: np.ndarray, launched: dict, errs: dict,
                   streams: list[bytes], one_image: dict, place_times: dict,
                   encode1_image: dict) -> list:
@@ -2706,9 +2745,10 @@ def main() -> None:
     stream_paths = phase_stream(corpus)
     phase_host_legs(exact_streams, (corpus.shape[1] // 8) ** 2)
     conformance_paths = phase_conformance(corpus)
+    bench_paths = phase_bench(corpus, exact_streams)
     # the later slices' paths count with the round trip's
     for paths in (auto_paths, big["per_path"], sharded_paths, stream_paths,
-                  conformance_paths):
+                  conformance_paths, bench_paths):
         for c in paths.values():
             for k in launched:
                 launched[k] += c[k]

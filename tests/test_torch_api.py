@@ -172,11 +172,12 @@ def test_build_key_follows_the_sources_and_the_headers(tmp_path, monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    # the conformance scripts too (their entry points run under __main__)
-    scripts = [str(pathlib.Path(__file__).resolve().parent.parent / "scripts"
-                   / f"{name}.py")
+    # the port's scripts too (their entry points run under __main__)
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    scripts = [str(repo / "scripts" / f"{name}.py")
                for name in ("torch_hw_adversarial", "torch_hw_quality_sweep",
                             "torch_scaling_bench", "torch_multicard")]
+    scripts.append(str(repo / "torch_bench.py"))
     code = (
         "import sys, numpy as np\n"
         "import tinyimgcodec_tpu_torch as t\n"

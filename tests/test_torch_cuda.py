@@ -843,3 +843,25 @@ def test_default_device_follows_the_current_card(two_cards):
     finally:
         torch.cuda.set_device(0)
     assert got == want and on_1 == two_cards[1]
+
+
+def test_bench_graph_replays_equal_eager_passes_at_the_corpus_shape(cuda):
+    """``torch_bench.py``'s rows 3-5 on the card: each function captures
+    its pass in a CUDA graph and raises unless the graph's output equals
+    an eager pass's."""
+    import torch_bench
+    from tinyimgcodec_tpu_torch.corpus import synthetic_corpus
+
+    corpus = synthetic_corpus(49, 512)
+    for precision in ("fast", "exact"):
+        samples, _ = torch_bench.bench_device(corpus, 50, precision, k=2,
+                                              dev=cuda, reps=1)
+        assert len(samples) == 1 and samples[0] > 0
+    streams = compress_batch(corpus, 50, precision="fast", device=cuda)
+    samples, pixels = torch_bench.bench_decode_entropy_device(
+        streams, k=2, dev=cuda, reps=1)
+    assert pixels.shape == corpus.shape and samples[0] > 0
+    arrays = [container.decompress_to_arrays(s) for s in streams]
+    _, pixels2 = torch_bench.bench_decode_device(arrays, k=2, dev=cuda,
+                                                 reps=1)
+    assert torch.equal(pixels, pixels2)

@@ -75,6 +75,16 @@ def _host_decode_blocks(zz_rows: np.ndarray, quality: int,
     return np.clip(pix + 128.0, 0.0, 255.0).astype(np.uint8)
 
 
+def stack_coefficients(arrays: list[CodecArrays]) -> np.ndarray:
+    """Host-decoded coefficient arrays of one shape -> (B, nb, 64) int32,
+    the DC differences in column 0: what the host-entropy leg uploads for
+    its transform on the device."""
+    return np.concatenate(
+        [np.stack([a.dc for a in arrays])[..., None],
+         np.stack([a.ac for a in arrays])], axis=-1,
+    ).astype(np.int32)
+
+
 def _stream_key(data: bytes) -> tuple[int, int, int, bool]:
     """(height, width, quality, scaled_dct) of a stream's header: streams
     with equal keys share one batched transform."""
@@ -259,13 +269,9 @@ class Engine:
         """Host-decoded coefficient arrays of equal shape and quality ->
         (B, H, W) uint8: one batched transform on the device."""
         a0 = arrays[0]
-        zz = np.concatenate(
-            [np.stack([a.dc for a in arrays])[..., None],
-             np.stack([a.ac for a in arrays])], axis=-1,
-        ).astype(np.int32)
         return self._pixels(
-            torch.from_numpy(zz).to(self.device), a0.height, a0.width,
-            int(a0.quality), bool(a0.scaled_dct),
+            torch.from_numpy(stack_coefficients(arrays)).to(self.device),
+            a0.height, a0.width, int(a0.quality), bool(a0.scaled_dct),
         )
 
     def _decompress_batch(self, streams: list[bytes]):

@@ -165,6 +165,36 @@ def place_stream(packed: torch.Tensor, meta: torch.Tensor,
                         packed.shape[0], cap_words)
 
 
+def split_streams(raw: bytes, starts: np.ndarray, true_shape: tuple[int, int],
+                  quality: int, offsets: np.ndarray | None = None,
+                  index_stride: int = container.INDEX_STRIDE) -> list[bytes]:
+    """A batch's stream bytes -> one stream an image: the header with the
+    true (H, W), the image's bytes from its byte-aligned start bit
+    ``starts[i]`` and, given the batch's (N,) block bit ``offsets``, its
+    TICX trailer."""
+    th, tw = true_shape
+    header = container.make_header(
+        CodecArrays(
+            height=th, width=tw, quality=quality,
+            dc=np.empty(0, np.int32), ac=np.empty((0, 63), np.int32),
+        )
+    )
+    b = len(starts)
+    nb = 0 if offsets is None else len(offsets) // b
+    out = []
+    for i in range(b):
+        s = int(starts[i]) // 8
+        e = int(starts[i + 1]) // 8 if i + 1 < b else len(raw)
+        data = header + raw[s:e]
+        if offsets is not None:
+            data += container.make_block_index(
+                offsets[i * nb : (i + 1) * nb] - int(starts[i]),
+                stride=index_stride,
+            )
+        out.append(data)
+    return out
+
+
 def compress_batch_device(
     images,
     quality: int = 50,
@@ -273,12 +303,6 @@ def compress_batch_device(
     else:
         words, bits, overflow = encode1(blocks, tables, nb)
 
-    header = container.make_header(
-        CodecArrays(
-            height=th, width=tw, quality=quality,
-            dc=np.empty(0, np.int32), ac=np.empty((0, 63), np.int32),
-        )
-    )
     if meta is not None:
         raw, starts, total = place_stream(packed, meta, overflow, nb,
                                           cap_words)
@@ -286,15 +310,5 @@ def compress_batch_device(
         raw, starts, total = _pull_stream(
             lambda cap: stitch(words, bits, nb, cap), overflow, n, cap_words)
     off_all = meta[0].cpu().numpy().astype(np.int64) if block_index else None
-    out = []
-    for i in range(b):
-        s = int(starts[i]) // 8
-        e = int(starts[i + 1]) // 8 if i + 1 < b else len(raw)
-        data = header + raw[s:e]
-        if off_all is not None:
-            data += container.make_block_index(
-                off_all[i * nb : (i + 1) * nb] - int(starts[i]),
-                stride=index_stride,
-            )
-        out.append(data)
-    return out
+    return split_streams(raw, starts, (th, tw), quality, off_all,
+                         index_stride)
