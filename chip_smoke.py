@@ -45,6 +45,14 @@ gradient, flat and saturated images, stripes) at q 1-95 at 128x128 and
 and auto-table streams, and a quality sweep of three corpus images at q
 10-90, exact and fast, each against the oracle.
 
+The engine's last two pieces: ``Engine.encode_to_words`` on the corpus
+and the 7680x4320 image (phase ``encode_to_words``: the stitched words
+are the oracle's payload in exact mode, the fast stream's in fast mode),
+and the host-entropy leg on a batch, the 49 corpus streams without their
+trailers, with the narrow upload of ``engine.compact_coefficients``
+(phase ``host_legs``: the oracle's pixels in exact mode, the bytes
+uploaded, the leg's stages each timed alone).
+
 The passes that ``torch_bench.py`` replays from CUDA graphs (phase
 ``bench``): the corpus encode fast and exact, the full decode of the
 exact streams and the decode transform alone, each captured once and
@@ -118,6 +126,7 @@ from tinyimgcodec_tpu_torch.conformance import (  # noqa: E402
 from tinyimgcodec_tpu_torch.corpus import (  # noqa: E402
     blocks_of_random_bits, seeded_image, synthetic_corpus,
 )
+from tinyimgcodec_tpu_torch.constants import HEADER_BYTES  # noqa: E402
 from tinyimgcodec_tpu_torch.device import card_info  # noqa: E402
 from tinyimgcodec_tpu_torch.engine import (  # noqa: E402
     KERNEL_BLOCK_BITS, Engine, _host_decode_blocks,
@@ -1402,12 +1411,13 @@ ENCODE_V1 = {"encode1": (1,), "stitch": (1, 2)}
 DECODE_KERNEL = {"entropy_decode": (1,)}
 
 
-def phase_main_path(corpus: np.ndarray) -> tuple[dict, list[bytes]]:
+def phase_main_path(corpus: np.ndarray) -> tuple[dict, list[bytes],
+                                                 list[bytes]]:
     """The round trip through the public entry points on the corpus:
     encode in both precisions and through the v1 kernels, decode on the
     device; each path between a reset and a reading of the launch
-    counters.  Returns the counts summed over the paths and the exact
-    streams."""
+    counters.  Returns the counts summed over the paths, the exact
+    streams and the fast ones."""
     quality = 50
     n_img = corpus.shape[0]
     nb = (corpus.shape[1] // 8) * (corpus.shape[2] // 8)
@@ -1544,7 +1554,7 @@ def phase_main_path(corpus: np.ndarray) -> tuple[dict, list[bytes]]:
          first_pass_seconds=round(secs, 3),
          first_decode_seconds=round(decode_secs, 3),
          check_seconds=round(time.perf_counter() - t0, 1))
-    return launched, exact
+    return launched, exact, fast
 
 
 def auto_table_launches(n_img: int) -> dict:
@@ -1923,7 +1933,78 @@ def _tiled_checks() -> dict:
          "host memory; oracle_* = container.compress / decompress, once",
          **timing)
     return {"per_path": per_path, "image": img, "exact": exact,
-            "pay_end": pay_end}
+            "fast": fast, "pay_end": pay_end}
+
+
+def phase_encode_to_words(corpus: np.ndarray, exact: list[bytes],
+                          fast: list[bytes], big: dict) -> dict:
+    """``Engine.encode_to_words`` on the card: the per-block words and bit
+    counts of every corpus image and of the 7680x4320 image of ``tiled``
+    (two block ranges, so the first row of the second is coded again on
+    the host), stitched by ``native.stitch``, must be the payload of the
+    oracle's stream (exact) or of the port's fast stream (fast).  Each
+    path between a reset and a reading of the launch counters.  Returns
+    the launches by path."""
+    quality = 50
+    n_img = corpus.shape[0]
+    nb = (corpus.shape[1] // 8) * (corpus.shape[2] // 8)
+    per_path: dict = {}
+    engines = {p: Engine(p, DEV) for p in ("exact", "fast")}
+
+    def payload(stream: bytes, n: int) -> bytes:
+        return stream[HEADER_BYTES:container.parse_block_index(stream, n)[2]]
+
+    def check(label, words, stream, n):
+        w, bits = words
+        if (w.dtype != np.uint32 or bits.dtype != np.int32
+                or w.shape != (n, 52) or bits.shape != (n,)):
+            fail(f"encode_to_words {label}: {w.dtype} {w.shape}, "
+                 f"{bits.dtype} {bits.shape}")
+        if native.stitch(w, bits) != payload(stream, n):
+            fail(f"encode_to_words {label}: the stitched words differ from "
+                 "the stream's payload")
+
+    t0 = time.perf_counter()
+    for precision, streams, want in (
+            ("exact", exact, {"exact_transform": (n_img,),
+                              "encode1": (n_img,)}),
+            ("fast", fast, {"encode1": (n_img,)})):
+        eng = engines[precision]
+        got = counted(f"encode_to_words {precision} corpus", lambda: [
+            eng.encode_to_words(im, quality) for im in corpus], want,
+            per_path)
+        for i in range(n_img):
+            check(f"{precision} image {i}", got[i], streams[i], nb)
+    corpus_s = time.perf_counter() - t0
+
+    img = big["image"]
+    nb_big = img.size // 64
+    limit = pipeline.MAX_PIXELS
+    if REHEARSE:
+        pipeline.MAX_PIXELS = 64 * 100  # as in ``phase_tiled``
+    try:
+        k = len(tiled.sub_ranges(0, nb_big))
+        t0 = time.perf_counter()
+        for precision, want in (
+                ("exact", {"exact_transform": (k,), "encode1": (k,)}),
+                ("fast", {"encode1": (k,)})):
+            eng = engines[precision]
+            got = counted(f"encode_to_words {precision} {img.shape[1]}x"
+                          f"{img.shape[0]}",
+                          lambda: eng.encode_to_words(img, quality), want,
+                          per_path)
+            check(f"{precision} {img.shape}", got, big[precision], nb_big)
+        big_s = time.perf_counter() - t0
+    finally:
+        pipeline.MAX_PIXELS = limit
+    emit("encode_to_words", images=list(corpus.shape),
+         large_image=list(img.shape), block_ranges=k,
+         checked=f"exact: the stitched words of {n_img} corpus images and "
+         "of the large image == the oracle's payload; fast: == the port's "
+         "fast (v2) payload", launches_by_path=per_path,
+         corpus_seconds=round(corpus_s, 2),
+         large_image_seconds=round(big_s, 2))
+    return per_path
 
 
 def sharded_rank(mesh, image: np.ndarray, corpus: np.ndarray,
@@ -2094,15 +2175,78 @@ def phase_stream(corpus: np.ndarray) -> dict:
     return per_path
 
 
-def phase_host_legs(exact: list[bytes], nb: int) -> dict:
+def host_entropy_split():
+    """``scripts/torch_host_entropy_split.py`` as a module: the stage
+    split of the host-entropy leg, shared with the script that compares
+    two trees."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "torch_host_entropy_split.py")
+    spec = importlib.util.spec_from_file_location("torch_host_entropy_split",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def host_entropy_batch(corpus: np.ndarray, exact: list[bytes], nb: int,
+                       reps: int) -> dict:
+    """The host-entropy leg on a batch: the corpus's exact streams with
+    their trailers cut, through ``decompress_batch`` in both precisions.
+    Exact pixels must equal ``container.decompress``'s for every image,
+    fast ones come within 0.01 dB PSNR of them (the fast-decode bar of
+    ``main_path``); every image must take the host-entropy leg.  Records
+    the bytes the leg uploads (the narrow form beside the (B, nb, 64)
+    int32 one) and the leg's stages, each timed alone."""
+    cut = [s[:container.parse_block_index(s, nb)[2]] for s in exact]
+    oracle = [container.decompress(s) for s in cut]
+    out = {}
+    for precision in ("exact", "fast"):
+        engine = Engine(precision, DEV)
+        got = engine.decompress_batch(cut)
+        stats = dict(engine.decode_stats)
+        if stats != {"kernel": 0, "host_entropy": len(cut),
+                     "host_decoder": 0}:
+            fail(f"host_legs batch {precision}: legs {stats}")
+        if precision == "exact":
+            bad = [i for i, o in enumerate(oracle)
+                   if not np.array_equal(got[i], o)]
+            if bad:
+                fail(f"host_legs batch exact: images {bad} differ from "
+                     "container.decompress")
+        else:
+            worst = max(abs(psnr(corpus[i], got[i]) - psnr(corpus[i], o))
+                        for i, o in enumerate(oracle))
+            if not worst <= 0.01:
+                fail(f"host_legs batch fast: PSNR {worst} dB from the "
+                     "oracle's decode (> 0.01)")
+            out["fast_vs_exact_decode_psnr_db"] = worst
+        out[f"legs_{precision}"] = stats
+    split = host_entropy_split()
+    for precision in ("exact", "fast"):
+        out[f"stages_{precision}"] = split.host_entropy_stages(
+            cut, precision, DEV, reps)
+    up = out["stages_exact"]
+    ratio = up["upload_bytes"] / up["int32_form_bytes"]
+    if up["form"] != "narrow" or ratio > 0.3:
+        fail(f"host_legs batch: the upload is {up['upload_bytes']} bytes "
+             f"({up['upload_dtypes']}), {ratio:.3f} of the int32 form")
+    out["upload_bytes_over_int32_form"] = ratio
+    return out
+
+
+def phase_host_legs(corpus: np.ndarray, exact: list[bytes]) -> dict:
     """The two host legs of decode at 512x512, now through the C decoder:
     a stream without its trailer (host entropy) and one with a corrupt
     chunk (host decoder).  The first is held to the pure-Python cursor's
     pixels; the second to ``container.decompress`` (the host decoder,
     which decodes a TICX stream chunk by chunk), and its C decode without
     the trailer to the Python cursor's.  Each is timed (host clock,
-    synchronised, median)."""
+    synchronised, median).  Then the host-entropy leg on the batch of all
+    the corpus's streams without trailers (``host_entropy_batch``)."""
     reps = 1 if REHEARSE else 5
+    nb = (corpus.shape[1] // 8) * (corpus.shape[2] // 8)
     pay_end = container.parse_block_index(exact[1], nb)[2]
     flipped = first_flip_that_fails(exact[2], nb)
     cases = {"host_entropy": exact[1][:pay_end], "host_decoder": flipped}
@@ -2140,12 +2284,18 @@ def phase_host_legs(exact: list[bytes], nb: int) -> dict:
                     "container_decompress_ms": float(np.median(host[1:])),
                     "python_cursor_decode_s": round(python_secs, 3),
                     "legs": stats}
-    side = int(round(np.sqrt(nb))) * 8
-    emit("host_legs", image=f"{side}x{side}", repeats=reps,
+    out["batch"] = host_entropy_batch(corpus, exact, nb, reps)
+    emit("host_legs", image=f"{corpus.shape[1]}x{corpus.shape[2]}",
+         repeats=reps,
          note="decompress_batch = the engine's whole call (for the corrupt "
          "stream the kernel leg runs first); container_decompress = the C "
          "decoder and the float64 inverse transform on the host alone; "
-         "python_cursor_decode = the pure-Python oracle, once", **out)
+         "python_cursor_decode = the pure-Python oracle, once; batch = "
+         f"the {len(exact)} streams without trailers through the "
+         "host-entropy leg, its stages each timed alone (host clock, "
+         "synchronised, median): the C decodes on the pool, compaction, "
+         "upload, widening + undo_dpcm + decode_blocks, flags + float64 "
+         "recompute, unblockify + pull", **out)
     return out
 
 
@@ -2737,18 +2887,20 @@ def main() -> None:
                                   phase_exact_shapes(corpus))
     errs["stitch"] = max(errs["stitch"], phase_stitch_shapes(corpus))
     errs["entropy_decode"] = phase_decode_check(corpus)
-    launched, exact_streams = phase_main_path(corpus)
+    launched, exact_streams, fast_streams = phase_main_path(corpus)
     auto_paths, auto_err, auto_streams = phase_auto_table(corpus)
     errs["encode2"] = max(errs["encode2"], auto_err)
     big = phase_tiled()
+    words_paths = phase_encode_to_words(corpus, exact_streams, fast_streams,
+                                        big)
     sharded_paths = phase_sharded(corpus, big, exact_streams)
     stream_paths = phase_stream(corpus)
-    phase_host_legs(exact_streams, (corpus.shape[1] // 8) ** 2)
+    phase_host_legs(corpus, exact_streams)
     conformance_paths = phase_conformance(corpus)
     bench_paths = phase_bench(corpus, exact_streams)
     # the later slices' paths count with the round trip's
-    for paths in (auto_paths, big["per_path"], sharded_paths, stream_paths,
-                  conformance_paths, bench_paths):
+    for paths in (auto_paths, big["per_path"], words_paths, sharded_paths,
+                  stream_paths, conformance_paths, bench_paths):
         for c in paths.values():
             for k in launched:
                 launched[k] += c[k]

@@ -176,7 +176,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     repo = pathlib.Path(__file__).resolve().parent.parent
     scripts = [str(repo / "scripts" / f"{name}.py")
                for name in ("torch_hw_adversarial", "torch_hw_quality_sweep",
-                            "torch_scaling_bench", "torch_multicard")]
+                            "torch_scaling_bench", "torch_multicard",
+                            "torch_host_entropy_split")]
     scripts.append(str(repo / "torch_bench.py"))
     code = (
         "import sys, numpy as np\n"
@@ -216,6 +217,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert t.decompress(d, backend='host').shape == img.shape\n"
         "out = t.decompress_batch([d, d], device='cpu')\n"
         "assert (out[0] == t.decompress(d, backend='host')).all()\n"
+        "from tinyimgcodec_tpu_torch.engine import Engine\n"
+        "nt = t.compress(img, 50, block_index=False, device='cpu')\n"
+        "assert (Engine('exact', 'cpu').decompress_batch([nt, nt])[1] == "
+        "t.decompress(nt, backend='host')).all()\n"
+        "words, bits = Engine('exact', 'cpu').encode_to_words(img, 50)\n"
+        "assert words.shape == (64, 52) and bits.shape == (64,)\n"
         "from tinyimgcodec_tpu_torch.pipeline import compress_batch_device\n"
         "v1 = compress_batch_device(img[None], 50, device='cpu', "
         "version='v1')\n"

@@ -865,3 +865,66 @@ def test_bench_graph_replays_equal_eager_passes_at_the_corpus_shape(cuda):
     _, pixels2 = torch_bench.bench_decode_device(arrays, k=2, dev=cuda,
                                                  reps=1)
     assert torch.equal(pixels, pixels2)
+
+
+def test_host_entropy_leg_on_the_card_equals_the_oracle(cuda):
+    """The corpus streams without trailers: C decodes on the host, the
+    narrow upload widened on the card, the transform there; the pixels
+    are the oracle's, and the upload is int16 DC and int8 AC."""
+    from tinyimgcodec_tpu_torch import engine as tengine
+    from tinyimgcodec_tpu_torch.corpus import synthetic_corpus
+
+    corpus = synthetic_corpus(49, 512)
+    streams = compress_batch(corpus, 50, block_index=False, device=cuda)
+    eng = Engine("exact", cuda)
+    got = eng.decompress_batch(streams)
+    assert eng.decode_stats == {"kernel": 0, "host_entropy": 49,
+                                "host_decoder": 0}
+    for g, s in zip(got, streams):
+        assert np.array_equal(g, container.decompress(s))
+    arrays = tengine.host_entropy_arrays(streams)
+    narrow = tengine.compact_coefficients(np.stack([a.dc for a in arrays]),
+                                          np.stack([a.ac for a in arrays]))
+    assert narrow[0].dtype == np.int16 and narrow[1].dtype == np.int8
+
+
+@pytest.mark.parametrize("quality", [50, 95])
+def test_widening_on_the_card_equals_the_cpu(cuda, quality):
+    """q=95 gives |AC| > 127: the outliers are added on the card."""
+    from tinyimgcodec_tpu_torch.engine import (
+        compact_coefficients, widen_coefficients,
+    )
+
+    arrays = [container.decompress_to_arrays(
+        container.compress(synthetic_image(64, 64, seed=s), quality))
+        for s in (1, 2, 3)]
+    dc = np.stack([a.dc for a in arrays])
+    ac = np.stack([a.ac for a in arrays])
+    narrow = compact_coefficients(dc, ac)
+    assert (narrow[2].size > 0) == (quality == 95)
+    wide = widen_coefficients(
+        *(torch.from_numpy(x).to(cuda) for x in narrow), cuda)
+    assert wide.device.type == "cuda"
+    assert np.array_equal(wide.cpu().numpy(),
+                          np.concatenate([dc[..., None], ac], axis=-1))
+
+
+def test_encode_to_words_on_the_card_equals_the_cpu(cuda, monkeypatch):
+    """Exact: the card's words and bits == the CPU's, in one range and in
+    three (the limit lowered to 24 blocks); fast: the stitched words are
+    the card's own fast payload."""
+    from tinyimgcodec_tpu_torch import native, pipeline
+    from tinyimgcodec_tpu_torch.constants import HEADER_BYTES
+
+    imgs = [synthetic_image(64, 64, seed=4), synthetic_image(61, 83, seed=5)]
+    for cut in (False, True):
+        if cut:
+            monkeypatch.setattr(pipeline, "MAX_PIXELS", 64 * 24)
+        for img in imgs:
+            mine = Engine("exact", cuda).encode_to_words(img, 50)
+            want = Engine("exact", "cpu").encode_to_words(img, 50)
+            assert all(np.array_equal(a, b) for a, b in zip(mine, want))
+            words, bits = Engine("fast", cuda).encode_to_words(img, 50)
+            payload = compress_batch_device(
+                img[None], 50, precision="fast", device=cuda)[0]
+            assert native.stitch(words, bits) == payload[HEADER_BYTES:]

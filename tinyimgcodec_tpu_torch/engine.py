@@ -23,12 +23,19 @@ by what the device or the build did:
 - **host entropy**: streams the kernel leg cannot take (no trailer, an
   inadmissible table, an image of more than ``MAX_DECODE_BLOCKS`` blocks)
   are entropy-decoded by the C decoder of ``native`` (through
-  ``container``), one thread a stream, and transformed on the device.
+  ``container``), one thread a stream, and transformed on the device;
+  the coefficients go up narrow (:func:`compact_coefficients`: int16 DC,
+  int8 AC and a list of outliers, as the JAX package's
+  ``Engine._compact_coeffs``) and are widened there.
 
 A uniform batch of more than ``MAX_DECODE_BLOCKS`` blocks is decoded on
 the kernel leg in sub-batches cut at image boundaries.
 
 ``decode_stats`` counts the images each leg took in the last call.
+
+``encode_to_words`` gives an image's per-block code words and bit counts
+(the ``encode1`` kernel), from which a TICX trailer of any stride can be
+built.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from . import container, golden
+from . import container, golden, native
 from .bitstream import BitWriter, concat_bit_payload
 from .constants import FLAG_CUSTOM_TABLE, FLAG_SCALED_DCT, ZIGZAG_ORDER
 from .device import resolve_device
@@ -48,9 +55,13 @@ from .huffman import (
     block_bit_counts, build_huffman_spec_from_counts, symbol_counts,
 )
 from .ops import transform
+from .ops.encode1 import BLOCK_WORDS, encode1
+from .ops.encode2 import fast_coefficients
 from .ops.entropy_decode import entropy_decode_chunks, prepare_batch
 from .parallel import tiled
-from .pipeline import TableRangeError, compress_batch_device, stream_bytes
+from .pipeline import (
+    TableRangeError, compress_batch_device, exact_coefficients, stream_bytes,
+)
 from .tables import CodecTables, DecodeTables, dequant_multipliers
 
 _CHUNK_KEYS = ("chunk_start", "chunk_blocks", "chunk_block_base",
@@ -75,14 +86,88 @@ def _host_decode_blocks(zz_rows: np.ndarray, quality: int,
     return np.clip(pix + 128.0, 0.0, 255.0).astype(np.uint8)
 
 
-def stack_coefficients(arrays: list[CodecArrays]) -> np.ndarray:
-    """Host-decoded coefficient arrays of one shape -> (B, nb, 64) int32,
-    the DC differences in column 0: what the host-entropy leg uploads for
-    its transform on the device."""
-    return np.concatenate(
-        [np.stack([a.dc for a in arrays])[..., None],
-         np.stack([a.ac for a in arrays])], axis=-1,
-    ).astype(np.int32)
+def compact_coefficients(dc: np.ndarray, ac: np.ndarray):
+    """Host-decoded int32 coefficients -> the narrow form the host-entropy
+    leg uploads: ``(dc16, acN, exc_idx, exc_val)``.
+
+    ``dc`` (..., nb) DC differences, ``ac`` (..., nb, 63) zig-zag AC.  A
+    decodable stream bounds both by its tables (standard: |DC diff| <=
+    2047, |AC| <= 1023; any table: 15 bits), so int16 holds them.  DC goes
+    as int16; AC as int8 plus the outliers, their flat indices into ``ac``
+    (int64: any batch) and their int16 value deltas, to be added after
+    widening -- unless more than ``ac.size // 8`` coefficients lie outside
+    int8 (or a delta would not fit int16, only for |AC| >= 32640), and
+    then as int16 with no outliers.  The dtypes and the outlier rule are
+    those of the JAX package's ``Engine._compact_coeffs``; its padding of
+    the outlier list to a power of two, which bounds jit signatures there,
+    is dropped."""
+    dc16 = np.ascontiguousarray(dc, dtype=np.int16)
+    ac = np.asarray(ac)
+    ac8 = ac.astype(np.int8)  # wraps, as the JAX function's cast does
+    idx = np.flatnonzero(ac8 != ac)
+    val = ac.reshape(-1)[idx] - ac8.reshape(-1)[idx].astype(np.int64)
+    if idx.size > ac.size // 8 or (
+            idx.size and int(np.abs(val).max()) > np.iinfo(np.int16).max):
+        return (dc16, np.ascontiguousarray(ac, dtype=np.int16),
+                np.zeros(0, np.int64), np.zeros(0, np.int16))
+    return dc16, ac8, idx.astype(np.int64), val.astype(np.int16)
+
+
+def widen_coefficients(dc16: torch.Tensor, acN: torch.Tensor,
+                       exc_idx: torch.Tensor, exc_val: torch.Tensor,
+                       device: str | torch.device) -> torch.Tensor:
+    """The narrow form of :func:`compact_coefficients`, already on
+    ``device`` -> (..., nb, 64) int32 there, the DC differences in column
+    0: widen, then add the outliers' deltas at their positions.  Plain
+    torch, as the JAX package's XLA widening; a tensor on another device
+    raises."""
+    dev = resolve_device(device)
+    for t in (dc16, acN, exc_idx, exc_val):
+        if t.device != dev:
+            raise ValueError(f"coefficients on {t.device}, expected {dev}")
+    out = torch.empty((*dc16.shape, 64), dtype=torch.int32, device=dev)
+    out[..., 0] = dc16
+    out[..., 1:] = acN
+    if exc_idx.numel():
+        # flat AC index i is row i // 63, column i % 63 + 1 of the output
+        out.view(-1).index_add_(0, exc_idx + exc_idx // 63 + 1,
+                                exc_val.to(torch.int32))
+    return out
+
+
+def host_entropy_arrays(streams: list[bytes]) -> list[CodecArrays]:
+    """The entropy stage of the host-entropy leg: each stream through the
+    C decoder of ``native`` (``container.decompress_to_arrays``)."""
+    if len(streams) == 1:
+        return [container.decompress_to_arrays(streams[0])]
+    # one C decode a stream, concurrently (the ctypes call releases the
+    # GIL); no TICX threads inside them, which would oversubscribe the
+    # cores
+    workers = min(len(streams), os.cpu_count() or 1)
+    with ThreadPoolExecutor(workers) as pool:
+        return list(pool.map(
+            lambda d: container.decompress_to_arrays(d, index_workers=1),
+            streams))
+
+
+_TABLE_RANGE_MESSAGE = (
+    "coefficient magnitude exceeds the standard Huffman table range "
+    "(quality too high for this input); re-encode with "
+    "auto_generate_huffman_table=True -- dynamic tables extend to DC "
+    "category 15 / AC size 15")
+
+
+def _block_row(dc_diff: np.ndarray, ac: np.ndarray) -> tuple[np.ndarray, int]:
+    """One block's (1,) DC difference and (1, 63) AC -> its (52,) uint32
+    row, packed from bit 0 as ``encode1`` packs it, and its bit count: the
+    standard tables through the C encoder of ``native``."""
+    try:
+        payload, nbits = native.entropy_encode(dc_diff, ac)
+    except ValueError:
+        raise ValueError(_TABLE_RANGE_MESSAGE) from None
+    row = np.zeros(BLOCK_WORDS * 4, np.uint8)
+    row[:len(payload)] = np.frombuffer(payload, np.uint8)
+    return row.view(">u4").astype(np.uint32), nbits
 
 
 def _stream_key(data: bytes) -> tuple[int, int, int, bool]:
@@ -197,6 +282,57 @@ class Engine:
             data += container.make_block_index(offsets, stride=index_stride)
         return data
 
+    def encode_to_words(self, image: np.ndarray,
+                        quality: int) -> tuple[np.ndarray, np.ndarray]:
+        """One image -> ``(words, block_bits)``: (nb, 52) uint32, each
+        block's code words packed big-endian from bit 0 of its own row
+        (zero after its last bit), and (nb,) int32 bit counts, with the DC
+        predictor reset at the first block.  Exact mode gives the float64
+        oracle's symbols: the JAX package's ``Engine.encode_to_words`` bit
+        for bit.  ``native.stitch(words, block_bits)`` is the payload.
+
+        ``encode1`` on the device, from ``exact_coefficients`` (exact) or
+        from the pixels (fast), in the block ranges of
+        ``tiled.sub_ranges`` (one call each); the first block of a later
+        range was coded with the predictor reset, so its row is coded
+        again on the host from the previous range's last DC.  A
+        coefficient outside the standard tables raises ``ValueError``."""
+        image = np.asarray(image)
+        if image.ndim != 2:
+            raise ValueError("expected a 2-D grayscale image")
+        quality = int(quality)
+        padded = np.ascontiguousarray(
+            transform.pad_to_blocks(image.astype(np.uint8, copy=False)))
+        nb = (padded.shape[0] // 8) * (padded.shape[1] // 8)
+        dev = self.device
+        tables = CodecTables.build(quality, dev)
+        ranges = tiled.sub_ranges(0, nb)
+        words, bits, over = [], [], []
+        prev_dc = 0
+        for k, (a, b) in enumerate(ranges):
+            blocks = tiled.range_blocks(padded, a, b, dev)
+            if self.precision == transform.EXACT:
+                zz = exact_coefficients(blocks, quality, tables)
+                w, n, flag = encode1(zz.T.contiguous(), tables, b - a,
+                                     from_zz=True)
+            else:
+                w, n, flag = encode1(blocks, tables, b - a)
+                # the coefficients the range ends need, only with a next
+                zz = (fast_coefficients(blocks[[0, -1]], tables)
+                      if len(ranges) > 1 else None)
+            words.append(w.cpu().numpy().view(np.uint32))
+            bits.append(n.cpu().numpy())
+            over.append(bool(flag))
+            if k:
+                first = zz[:, 0].cpu().numpy().astype(np.int32)
+                words[k][0], bits[k][0] = _block_row(
+                    first[:1] - prev_dc, first[None, 1:])
+            if zz is not None:
+                prev_dc = int(zz[0, -1])
+        if any(over):
+            raise ValueError(_TABLE_RANGE_MESSAGE)
+        return np.concatenate(words), np.concatenate(bits)
+
     # -- decode ----------------------------------------------------------
     def _pixels(self, zz: torch.Tensor, h: int, w: int, quality: int,
                 scaled: bool, tables: DecodeTables | None = None):
@@ -267,12 +403,16 @@ class Engine:
 
     def _decode_uniform_arrays(self, arrays: list[CodecArrays]) -> np.ndarray:
         """Host-decoded coefficient arrays of equal shape and quality ->
-        (B, H, W) uint8: one batched transform on the device."""
+        (B, H, W) uint8: compacted on the host, uploaded narrow, widened
+        on the device, then one batched transform there."""
         a0 = arrays[0]
-        return self._pixels(
-            torch.from_numpy(stack_coefficients(arrays)).to(self.device),
-            a0.height, a0.width, int(a0.quality), bool(a0.scaled_dct),
-        )
+        dev = self.device
+        narrow = compact_coefficients(np.stack([a.dc for a in arrays]),
+                                      np.stack([a.ac for a in arrays]))
+        zz = widen_coefficients(
+            *(torch.from_numpy(x).to(dev) for x in narrow), dev)
+        return self._pixels(zz, a0.height, a0.width, int(a0.quality),
+                            bool(a0.scaled_dct))
 
     def _decompress_batch(self, streams: list[bytes]):
         if not streams:
@@ -295,17 +435,7 @@ class Engine:
             out = self._decompress_batch_device(streams)
             if out is not None:
                 return out
-        if len(streams) > 1:
-            # one C decode a stream, concurrently (the ctypes call releases
-            # the GIL); no TICX threads inside them, which would
-            # oversubscribe the cores
-            workers = min(len(streams), os.cpu_count() or 1)
-            with ThreadPoolExecutor(workers) as pool:
-                arrays = list(pool.map(
-                    lambda d: container.decompress_to_arrays(
-                        d, index_workers=1), streams))
-        else:
-            arrays = [container.decompress_to_arrays(streams[0])]
+        arrays = host_entropy_arrays(streams)
         self.decode_stats["host_entropy"] += len(streams)
         return self._decode_uniform_arrays(arrays)
 

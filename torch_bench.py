@@ -66,7 +66,9 @@ import torch
 from tinyimgcodec_tpu_torch import api, container, corpus, native
 from tinyimgcodec_tpu_torch.constants import HEADER_BYTES
 from tinyimgcodec_tpu_torch.device import card_lines, resolve_device
-from tinyimgcodec_tpu_torch.engine import Engine, stack_coefficients
+from tinyimgcodec_tpu_torch.engine import (
+    Engine, compact_coefficients, widen_coefficients,
+)
 from tinyimgcodec_tpu_torch.metrics import psnr
 from tinyimgcodec_tpu_torch.ops import (
     _build, encode2, entropy_decode, exact_transform, place, transform,
@@ -346,18 +348,22 @@ def bench_decode_entropy_device(streams: list[bytes], k: int = K_DECODE,
 
 def bench_decode_device(arrays: list, k: int = K_TRANSFORM,
                         dev: torch.device | None = None, reps: int = REPS):
-    """Row 5: the transform half of decode alone (``undo_dpcm``,
-    ``decode_blocks`` fast, ``unblockify``) from the (B, nb, 64) int32
-    coefficients that the engine's host-entropy leg uploads, resident on
-    the card, replayed from a CUDA graph.  Returns (MP/s samples, the
-    graph's (B, H8, W8) pixels)."""
+    """Row 5: the transform half of decode alone from the compact form
+    the engine's host-entropy leg uploads (int16 DC, int8 or int16 AC and
+    the outliers, ``engine.compact_coefficients``), resident on the card:
+    ``widen_coefficients``, ``undo_dpcm``, ``decode_blocks`` fast,
+    ``unblockify``, replayed from a CUDA graph, as ``bench.py``'s
+    ``bench_decode_device``.  Returns (MP/s samples, the graph's (B, H8,
+    W8) pixels)."""
     dev = resolve_device(dev)
     a0 = arrays[0]
     h8, w8 = -(-a0.height // 8) * 8, -(-a0.width // 8) * 8
     tables = DecodeTables.build(int(a0.quality), bool(a0.scaled_dct), dev)
-    zz = torch.from_numpy(stack_coefficients(arrays)).to(dev)
+    narrow = [torch.from_numpy(x).to(dev) for x in compact_coefficients(
+        np.stack([a.dc for a in arrays]), np.stack([a.ac for a in arrays]))]
 
     def step():
+        zz = widen_coefficients(*narrow, dev)
         blocks = transform.decode_blocks(
             transform.undo_dpcm(zz), int(a0.quality), transform.FAST,
             tables=tables)
@@ -583,9 +589,8 @@ class Bench:
                          "decode transform")
         self.notes["decode/device"] = {
             "k": K_TRANSFORM,
-            "starts_from": "the (B, nb, 64) int32 coefficients the "
-            "host-entropy leg uploads (the port has no compact int16/int8 "
-            "form)"}
+            "starts_from": "the compact form the host-entropy leg uploads "
+            "(int16 DC, int8 AC + outliers), widened inside the pass"}
         return samples
 
     def one_stream(self):
