@@ -35,7 +35,13 @@ auto tables, both against the oracle (phase ``tiled``); the tiled encode,
 ``compress_batch_sharded`` and ``decompress_batch_sharded`` in two gloo
 ranks on the one card and in NCCL at a world of one, each rank a process
 of ``parallel.mesh.spawn`` (phase ``sharded``); ``compress_stream`` and
-``decompress_stream`` over the corpus (phase ``stream``).
+``decompress_stream`` over the corpus (phase ``stream``).  The same
+entry points on a local mesh, two shards on ``cuda:0`` in this one
+process, one thread a shard (phase ``local_mesh``: the 8K tiled encode,
+the corpus through ``compress_batch`` and ``compress_batch_sharded``, its
+decode through ``decompress_batch_sharded``, and a q=99 refusal on one
+shard), each equal to the world of one's bytes and pixels, with its
+launches counted by card.
 
 The conformance batteries of ``tinyimgcodec_tpu_torch/conformance.py``
 (phase ``conformance``): adversarial content (noise, checkerboards, a
@@ -80,6 +86,7 @@ import signal
 import struct
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -149,10 +156,6 @@ from tinyimgcodec_tpu_torch.tables import (  # noqa: E402
 import torch_bench  # noqa: E402
 
 DEV = torch.device("cpu" if REHEARSE else "cuda")
-KERNEL_MODULES = {
-    "exact_transform": exact_transform, "encode2": encode2, "place": place,
-    "encode1": encode1, "stitch": stitch, "entropy_decode": entropy_decode,
-}
 
 
 def sync() -> None:
@@ -160,12 +163,7 @@ def sync() -> None:
         torch.cuda.synchronize()
 
 
-def reset_counts() -> None:
-    for m in KERNEL_MODULES.values():
-        m.launches = 0
-    encode2.launches_by_input = {"pixels": 0, "zz": 0}
-
-
+reset_counts = conformance.reset_launch_counts
 counts = conformance.launch_counts
 
 
@@ -2097,6 +2095,125 @@ def phase_sharded(corpus: np.ndarray, big: dict, exact: list[bytes]) -> dict:
     return per_path
 
 
+def doubled(want: dict) -> dict:
+    """What two shards launch together when each launches what ``want``
+    allows one call."""
+    return {k: tuple(sorted({a + b for a in v for b in v}))
+            for k, v in want.items()}
+
+
+def phase_local_mesh(corpus: np.ndarray, big: dict, exact: list[bytes],
+                     fast: list[bytes]) -> dict:
+    """``parallel`` on a local mesh: two shards on ``cuda:0``, one thread
+    each, in this process (``make_mesh(devices=...)``; the mesh over
+    every card of a machine is ``scripts/torch_multicard.py``'s ``local``
+    phase).  The 7680x4320 tiled encode (host and device assembly, exact;
+    fast), the corpus through ``compress_batch`` with the index (exact,
+    fast) and ``compress_batch_sharded`` (exact, fast), the exact streams
+    through ``decompress_batch_sharded``: each equal to the world of one's
+    bytes or pixels and, exact, to the oracle's; each path's launches
+    counted in all and by card.  A q=99 batch that only the second
+    shard's image leaves the tables must raise one table-range error and
+    leave no shard thread behind."""
+    devs = ["cpu" if REHEARSE else "cuda:0"] * 2
+    mesh = make_mesh(devices=devs)
+    one = make_mesh(1, device=DEV)
+    image = big["image"]
+    nb_big = (image.shape[0] // 8) * (image.shape[1] // 8)
+    k = sum(len(tiled.sub_ranges(*tiled.block_range(nb_big, 2, r)))
+            for r in range(2))
+    nb = (corpus.shape[1] // 8) * (corpus.shape[2] // 8)
+    per_path: dict = {}
+    by_card: dict = {}
+    shards: dict = {}
+    seconds: dict = {}
+
+    def run(label, fn, want):
+        t0 = time.perf_counter()
+        out = counted(f"local x2 {label}", fn, want, per_path)
+        seconds[label] = round(time.perf_counter() - t0, 3)
+        by_card[label] = conformance.launch_counts_by_card()
+        shards[label] = mesh.last_run
+        return out
+
+    payload = big["exact"][:big["pay_end"]]
+    for assemble in ("host", "device"):
+        got = run(f"encode_tiled {assemble}", lambda: tiled.encode_tiled(
+            image, 50, mesh=mesh, assemble=assemble),
+            tiled_launches(k, True))
+        if got != payload:
+            fail(f"local_mesh: encode_tiled({assemble!r}) differs from the "
+                 "oracle's stream without its trailer")
+    fast_one = tiled.encode_tiled(image, 50, mesh=one, precision="fast")
+    if run("encode_tiled fast", lambda: tiled.encode_tiled(
+            image, 50, mesh=mesh, precision="fast"),
+            tiled_launches(k, False)) != fast_one:
+        fail("local_mesh: the fast tiled encode differs from one shard's")
+    if run("compress_batch exact", lambda: pbatch.compress_batch(
+            corpus, 50, mesh=mesh, block_index=True),
+            doubled(ENCODE_EXACT)) != exact:
+        fail("local_mesh: compress_batch exact differs from the oracle")
+    if run("compress_batch fast", lambda: pbatch.compress_batch(
+            corpus, 50, mesh=mesh, precision="fast", block_index=True),
+            doubled(ENCODE_FAST)) != fast:
+        fail("local_mesh: compress_batch fast differs from one card's")
+    if run("compress_batch_sharded exact",
+           lambda: pbatch.compress_batch_sharded(
+               corpus, 50, mesh=mesh, precision="exact"),
+           doubled(ENCODE_EXACT)) != [
+               s[:container.parse_block_index(s, nb)[2]] for s in exact]:
+        fail("local_mesh: compress_batch_sharded exact differs from the "
+             "oracle")
+    if run("compress_batch_sharded fast",
+           lambda: pbatch.compress_batch_sharded(corpus, 50, mesh=mesh),
+           doubled(ENCODE_FAST)) != codec.compress_batch(
+               corpus, 50, precision="fast", block_index=False, device=DEV):
+        fail("local_mesh: compress_batch_sharded fast differs from one "
+             "card's")
+    decoded = run("decompress_batch_sharded",
+                  lambda: pbatch.decompress_batch_sharded(exact, mesh=mesh),
+                  doubled(DECODE_KERNEL))
+    oracle_px = np.stack([container.decompress(s) for s in exact])
+    if decoded is None or not np.array_equal(decoded, oracle_px):
+        fail("local_mesh: decompress_batch_sharded differs from "
+             "container.decompress")
+    if not REHEARSE:
+        for label, cards in by_card.items():
+            for kern, got in cards.items():
+                if set(got) - {0} or sum(got.values()) != per_path[
+                        f"local x2 {label}"][kern]:
+                    fail(f"local_mesh[{label}]: {kern} counted {got} by "
+                         "card, not all on card 0 or not the total")
+
+    battery = conformance.contents(64, 64)
+    refused = np.stack([battery["stripes"], battery["noise"]])
+    before = threading.active_count()
+    t0 = time.perf_counter()
+    try:
+        pbatch.compress_batch_sharded(refused, 99, mesh=mesh,
+                                      precision="exact")
+        fail("local_mesh: the q=99 batch was not refused")
+    except pipeline.TableRangeError as e:
+        refusal = str(e)
+    refusal_s = time.perf_counter() - t0
+    left = threading.active_count() - before
+    if left or conformance.TABLE_RANGE not in refusal:
+        fail(f"local_mesh: the refusal {refusal!r} left {left} threads")
+    emit("local_mesh", devices=devs, block_ranges=k,
+         checked=f"encode_tiled of the {image.shape[1]}x{image.shape[0]} "
+         "image (host, device) == the oracle's stream without its trailer, "
+         "fast == one shard's; compress_batch with the index exact == the "
+         "oracle, fast == one card's; compress_batch_sharded exact == the "
+         "oracle's payloads, fast == one card's; decompress_batch_sharded "
+         f"== container.decompress {len(exact)}/{len(exact)} on the "
+         "kernel (one entropy_decode launch a shard); a q=99 refusal on "
+         "shard 1 raised once, no thread left",
+         launches_by_path=per_path, launches_by_card=by_card,
+         seconds=seconds, shard_times=shards, refusal=refusal,
+         refusal_seconds=round(refusal_s, 3))
+    return per_path
+
+
 def phase_stream(corpus: np.ndarray) -> dict:
     """``compress_stream`` over the corpus (chunk 8: six chunks and a tail
     of one) against ``compress_batch``, ``decompress_stream`` against
@@ -2894,13 +3011,14 @@ def main() -> None:
     words_paths = phase_encode_to_words(corpus, exact_streams, fast_streams,
                                         big)
     sharded_paths = phase_sharded(corpus, big, exact_streams)
+    local_paths = phase_local_mesh(corpus, big, exact_streams, fast_streams)
     stream_paths = phase_stream(corpus)
     phase_host_legs(corpus, exact_streams)
     conformance_paths = phase_conformance(corpus)
     bench_paths = phase_bench(corpus, exact_streams)
     # the later slices' paths count with the round trip's
     for paths in (auto_paths, big["per_path"], words_paths, sharded_paths,
-                  stream_paths, conformance_paths, bench_paths):
+                  local_paths, stream_paths, conformance_paths, bench_paths):
         for c in paths.values():
             for k in launched:
                 launched[k] += c[k]

@@ -43,21 +43,36 @@ spawned, then runs these phases, one JSON line each:
   of ``decompress_batch_sharded`` of the corpus; each rank's own encode
   of its 49 images and decode of the 49 streams with no collective beside
   it (``local_exact``, ``local_decode``); MP/s and efficiency against one
-  rank, each rank's times and CPU seconds.
+  rank, each rank's times and CPU seconds;
+- ``local``: one process, no process group, ``make_mesh()`` over every
+  card (``cuda:0..n-1``, one thread a card): every check of ``nccl``
+  (each shard on its own card, ``compress_stream`` on each card at once),
+  both corpus sha256 through ``compress_batch`` with the index (the
+  default mesh), the 15360x8640 frame at two kernel calls a card (exact
+  and fast == one card's ``compress``), ``CorpusEncodeJob`` on the
+  default mesh (== the oracle's files), a q=99 batch that only the last
+  card's image leaves the tables (one table-range error, no thread left),
+  every card's launches of ``exact_transform``, ``encode2``, ``place``
+  and ``entropy_decode`` (counted by card); then the ``scaling`` rows at
+  1, 2 and 4 local cards (weak: 49 corpus images a card, exact and fast;
+  strong: the 7680x4320 tiled encode, the decode of the 49 streams), each
+  step's host CPU seconds and each shard's wall, thread CPU and
+  collective seconds, beside the NCCL rows of the same call.
 
 Every check is recorded (``checks``: ``phase``, ``name``, ``passed``);
 a failed one does not stop the run, and the script exits 0 only if all
 passed.  The last line is ``{"ok": true, ...}`` only then.
 
 ``--rehearse`` runs the same code on the CPU at a tiny size, with gloo
-ranks and the kernels' plain versions (a lowered ``pipeline.MAX_PIXELS``
-gives ``two_cuts`` its two calls a rank), to find faults before the
-cards are used; it ends with ``{"ok": false, "rehearsal": true}`` and
+ranks, CPU shards for the local meshes and the kernels' plain versions
+(a lowered ``pipeline.MAX_PIXELS`` gives ``two_cuts`` and ``local`` their
+two calls a rank or shard), to find faults before the cards are used; it
+ends with ``{"ok": false, "rehearsal": true}`` and
 exits 1.
 
 Usage:
     python3 scripts/torch_multicard.py [--reps 20] [--out PATH]
-        [--phases per_card,nccl,two_cuts,failure,scaling]
+        [--phases per_card,nccl,two_cuts,failure,scaling,local]
     python3 scripts/torch_multicard.py --rehearse [--out PATH]
 """
 
@@ -70,6 +85,8 @@ import os
 import pathlib
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -86,12 +103,13 @@ from tinyimgcodec_tpu_torch.corpus import (  # noqa: E402
 )
 from tinyimgcodec_tpu_torch.device import card_lines  # noqa: E402
 from tinyimgcodec_tpu_torch.engine import Engine  # noqa: E402
+from tinyimgcodec_tpu_torch.jobs import CorpusEncodeJob  # noqa: E402
 from tinyimgcodec_tpu_torch.ops import _build  # noqa: E402
 from tinyimgcodec_tpu_torch.parallel import (  # noqa: E402
-    RankFailure, spawn, tiled,
+    LocalMesh, RankFailure, make_mesh, spawn, tiled,
 )
 from tinyimgcodec_tpu_torch.parallel.batch import (  # noqa: E402
-    compress_batch_sharded, decompress_batch_sharded,
+    compress_batch, compress_batch_sharded, decompress_batch_sharded,
 )
 from tinyimgcodec_tpu_torch.parallel.stream import (  # noqa: E402
     compress_stream,
@@ -105,7 +123,7 @@ FAST_SHA = "dcc29e818283cd09647bd85773969c24cd479dc0d5dba79b43b2469d78a47549"
 FAILURE_S = 60.0
 BASELINE_TARGET = ("BASELINE.json config 5: 0.8 scaling efficiency, the "
                    "JAX package's target on its own devices; no bar here")
-PHASES = ("per_card", "nccl", "two_cuts", "failure", "scaling")
+PHASES = ("per_card", "nccl", "two_cuts", "failure", "scaling", "local")
 
 
 def sizes(rehearse: bool) -> dict:
@@ -134,6 +152,13 @@ def payloads(streams: list[bytes], nb: int) -> list[bytes]:
 def sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def sync_all() -> None:
+    """Every card of this process (nothing on the CPU)."""
+    if torch.cuda.is_available():
+        for k in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(k)
 
 
 class Record:
@@ -450,10 +475,9 @@ def phase_nccl(rec: Record, sz: dict, worlds: list[int], run: dict,
     return last
 
 
-def phase_two_cuts(rec: Record, sz: dict, world: int, ranks, run: dict,
-                   dev0) -> None:
-    """The 16K image's rank results against one card's ``compress``; the
-    ranks' exact stream decoded on one card."""
+def one_card_huge(sz: dict, dev0):
+    """The 16K frame, its blocks, and one card's ``compress`` of it:
+    exact with the index, its payload, fast without, and the seconds."""
     h, w = sz["huge"]
     huge = seeded_image(h, w, 16)
     nb = (h // 8) * (w // 8)
@@ -468,7 +492,15 @@ def phase_two_cuts(rec: Record, sz: dict, world: int, ranks, run: dict,
         one_secs = time.perf_counter() - t0
     finally:
         pipeline.MAX_PIXELS = saved
-    one_exact = payloads([one], nb)[0]
+    return huge, nb, one, payloads([one], nb)[0], one_fast, one_secs
+
+
+def phase_two_cuts(rec: Record, sz: dict, world: int, ranks, run: dict,
+                   dev0) -> None:
+    """The 16K image's rank results against one card's ``compress``; the
+    ranks' exact stream decoded on one card."""
+    h, w = sz["huge"]
+    huge, nb, one, one_exact, one_fast, one_secs = one_card_huge(sz, dev0)
     want = {"exact": sha([one_exact]), "fast": sha([one_fast])}
     rows = []
     for r in ranks:
@@ -529,6 +561,21 @@ def phase_failure(rec: Record, sz: dict, world: int, run: dict) -> None:
                           for r, tb in errors.items()})
 
 
+def step_stats(step: list[float], total_mp: float, n: int, base: dict,
+               key: str) -> dict:
+    """A scaling row's steps: median, spread, MP/s, and the efficiency
+    against the first row of ``key`` (``base`` keeps its MP/s)."""
+    med = float(np.median(step))
+    mps = total_mp / med
+    base.setdefault(key, mps)
+    return {"step_s_median": med, "step_s_min": min(step),
+            "step_s_max": max(step),
+            "step_s_p10_p90": [float(np.percentile(step, 10)),
+                               float(np.percentile(step, 90))],
+            "mp_per_step": total_mp, "mps": mps,
+            "efficiency": mps / (n * base[key]), "step_s": step}
+
+
 def phase_scaling(rec: Record, sz: dict, worlds: list[int], run: dict,
                   refs: dict, reps: int, card_lines: list[str]) -> None:
     """Weak and strong scaling rows at each world; no bar."""
@@ -557,22 +604,13 @@ def phase_scaling(rec: Record, sz: dict, worlds: list[int], run: dict,
             # a step ends when its slowest rank does
             step = [max(r["rows"][key]["s"][i] for r in ranks)
                     for i in range(reps)]
-            med = float(np.median(step))
             total = world * corpus_mp if key in per_rank else strong[key]
-            mps = total / med
-            base.setdefault(key, mps)
             row[key] = {
-                "step_s_median": med, "step_s_min": min(step),
-                "step_s_max": max(step),
-                "step_s_p10_p90": [float(np.percentile(step, 10)),
-                                   float(np.percentile(step, 90))],
-                "mp_per_step": total, "mps": mps,
-                "efficiency": mps / (world * base[key]),
+                **step_stats(step, total, world, base, key),
                 "rank_s_median": [float(np.median(r["rows"][key]["s"]))
                                   for r in ranks],
                 "rank_cpu_s_median": [float(np.median(
                     r["rows"][key]["cpu_s"])) for r in ranks],
-                "step_s": step,
             }
         rows.append(row)
         print(json.dumps({"scaling": label, **{
@@ -590,6 +628,242 @@ def phase_scaling(rec: Record, sz: dict, worlds: list[int], run: dict,
         "images / decode of the 49 streams with no collective, run while "
         "the other ranks run theirs (the host's share); rank_cpu_s: the "
         "rank's process CPU seconds a step, all its threads"))
+
+
+# ---------------------------------------------------------- local mesh
+
+def local_mesh(n: int, on_card: bool):
+    """A mesh of ``n`` devices of this process, no process group: the
+    first ``n`` cards (``make_mesh(n)``; one card is a world of one), or
+    ``n`` CPU shards in a rehearsal."""
+    if on_card:
+        return make_mesh(n)
+    return make_mesh(devices=["cpu"] * n)
+
+
+def local_checks(rec: Record, sz: dict, mesh, run: dict, refs: dict,
+                 dev0) -> dict:
+    """Every check of phase ``local`` on ``mesh`` (every card).  Returns
+    the launches by card and the seconds of each part."""
+    on_card = run["on_card"]
+    n = mesh.size
+    corpus = refs["corpus"]
+    big = seeded_image(*sz["big"], 8)
+    secs = {}
+    conformance.reset_launch_counts()
+    # the default mesh where the cards make it: every visible card
+    default = None if on_card else mesh
+
+    t0 = time.perf_counter()
+    got = {
+        "tiled": sha([tiled.encode_tiled(big, QUALITY, mesh=mesh)]),
+        "tiled_device": sha([tiled.encode_tiled(big, QUALITY, mesh=mesh,
+                                                assemble="device")]),
+        "sharded_exact": sha(compress_batch_sharded(
+            corpus, QUALITY, mesh=mesh, precision="exact")),
+        "sharded_fast": sha(compress_batch_sharded(corpus, QUALITY,
+                                                   mesh=mesh)),
+        "decoded": sha([decompress_batch_sharded(refs["exact"],
+                                                 mesh=default)]),
+        "batch_exact": sha(compress_batch(corpus, QUALITY, mesh=default,
+                                          block_index=True)),
+        "batch_fast": sha(compress_batch(corpus, QUALITY, mesh=mesh,
+                                         precision="fast",
+                                         block_index=True)),
+    }
+    sync_all()
+    secs["entry_points"] = time.perf_counter() - t0
+    for key in ("tiled", "sharded_exact", "sharded_fast", "decoded"):
+        rec.check("local", f"x{n}: {key} == one card's / the oracle's",
+                  got[key] == refs[key])
+    rec.check("local", f"x{n}: encode_tiled device == the oracle",
+              got["tiled_device"] == refs["tiled"])
+    want_exact = EXACT_SHA if on_card else refs["oracle_sha"]
+    rec.check("local", f"x{n}: exact corpus sha256 (compress_batch with the "
+              "index, the default mesh)", got["batch_exact"] == want_exact,
+              got=got["batch_exact"])
+    rec.check("local", f"x{n}: fast corpus sha256",
+              got["batch_fast"] == (FAST_SHA if on_card else refs["stream"]),
+              got=got["batch_fast"])
+
+    def stream_shard(shard):
+        """compress_stream on this shard's card, all cards at once; every
+        shard's digest and current card."""
+        digest = sha(compress_stream(corpus, QUALITY, chunk=8,
+                                     device=shard.device))
+        cur = torch.cuda.current_device() if on_card else -1
+        return shard.all_gather_bytes([f"{cur} {digest}".encode()])
+
+    t0 = time.perf_counter()
+    streams = mesh.run(stream_shard)
+    secs["streams"] = time.perf_counter() - t0
+    cards = [int(x.split()[0]) for x in streams]
+    rec.check("local", f"x{n}: compress_stream on each card == the fast "
+              "batch", all(x.split()[1].decode() == refs["stream"]
+                           for x in streams))
+    if on_card:
+        rec.check("local", f"x{n}: shard k on card k, made current",
+                  cards == list(range(n)) and mesh.devices == [
+                      torch.device("cuda", k) for k in range(n)],
+                  cards=cards)
+
+    huge, nb, _, one_exact, one_fast, _ = one_card_huge(sz, dev0)
+    saved = pipeline.MAX_PIXELS
+    if sz["max_pixels"]:
+        pipeline.MAX_PIXELS = sz["max_pixels"]
+    try:
+        calls = [len(tiled.sub_ranges(*tiled.block_range(nb, n, r)))
+                 for r in range(n)]
+        before = conformance.launch_counts_by_card()
+        t0 = time.perf_counter()
+        exact_huge = tiled.encode_tiled(huge, QUALITY, mesh=mesh)
+        sync_all()
+        secs["huge_exact"] = time.perf_counter() - t0
+        after = conformance.launch_counts_by_card()
+        fast_huge = tiled.encode_tiled(huge, QUALITY, mesh=mesh,
+                                       precision="fast")
+    finally:
+        pipeline.MAX_PIXELS = saved
+    huge_encode2 = {k: v - before["encode2"].get(k, 0)
+                    for k, v in after["encode2"].items()}
+    rec.check("local", f"x{n}: the {huge.shape[1]}x{huge.shape[0]} frame, "
+              "exact and fast == one card's compress, two calls a shard",
+              exact_huge == one_exact and fast_huge == one_fast
+              and calls == [2] * n and (not on_card or huge_encode2 == {
+                  k: 2 for k in range(n)}),
+              calls=calls, encode2_by_card=huge_encode2)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tic-job-") as out:
+        names = [f"im{i:03d}" for i in range(len(corpus))]
+        job = CorpusEncodeJob(out, quality=QUALITY,
+                              batch_size=len(corpus), mesh=default)
+        paths = job.run(dict(zip(names, corpus)))
+        files = [pathlib.Path(paths[k]).read_bytes() for k in names]
+    secs["job"] = time.perf_counter() - t0
+    rec.check("local", f"x{n}: CorpusEncodeJob on the default mesh == the "
+              "oracle's streams", sha(files) == want_exact)
+
+    battery = conformance.contents(sz["noise"], sz["noise"])
+    refused = np.stack([battery["stripes"]] * (n - 1) + [battery["noise"]])
+    threads = threading.active_count()
+    t0 = time.perf_counter()
+    try:
+        compress_batch_sharded(refused, 99, mesh=mesh, precision="exact")
+        raised = None
+    except pipeline.TableRangeError as e:
+        raised = str(e)
+    secs["refusal"] = time.perf_counter() - t0
+    rec.check("local", f"x{n}: a refusal on the last card raised once, no "
+              f"thread left, in under {FAILURE_S:.0f} s",
+              raised is not None and conformance.TABLE_RANGE in raised
+              and threading.active_count() == threads
+              and secs["refusal"] < FAILURE_S, raised=raised,
+              threads=[threads, threading.active_count()])
+
+    by_card = conformance.launch_counts_by_card()
+    if on_card:
+        for k in ("exact_transform", "encode2", "place", "entropy_decode"):
+            rec.check("local", f"x{n}: every card launched {k}",
+                      sorted(by_card[k]) == list(range(n)), by_card=by_card[k])
+    return {"launches_by_card": by_card, "seconds": secs}
+
+
+def local_scaling(sz: dict, refs: dict, reps: int, on_card: bool,
+                  card_lines: list[str], nccl_rows: list) -> list:
+    """The ``scaling`` rows at 1, 2 and 4 local cards (host clock around
+    every card synchronised, a warm step first): weak (49 corpus images a
+    card, exact and fast) and strong (the 8K tiled encode, the decode of
+    the 49 streams); each step's process CPU seconds and each shard's
+    wall, thread CPU and collective seconds; the NCCL row of as many
+    ranks beside each."""
+    corpus = refs["corpus"]
+    big = seeded_image(*sz["big"], 8)
+    corpus_mp = corpus.size / 1e6
+    strong = {"strong_tiled_exact": big.size / 1e6,
+              "strong_decode": corpus_mp}
+    nccl = {r["procs"]: r for r in nccl_rows}
+    rows, base = [], {}
+    for n in (1, 2, 4):
+        mesh = local_mesh(n, on_card)
+        weak = np.concatenate([corpus] * n)
+        fns = {
+            "weak_exact": lambda: compress_batch_sharded(
+                weak, QUALITY, mesh=mesh, precision="exact"),
+            "weak_fast": lambda: compress_batch_sharded(weak, QUALITY,
+                                                        mesh=mesh),
+            "strong_tiled_exact": lambda: tiled.encode_tiled(
+                big, QUALITY, mesh=mesh),
+            "strong_decode": lambda: decompress_batch_sharded(
+                refs["exact"], mesh=mesh),
+        }
+        row = {"cards": n, "devices": [str(d) for _, d in mesh.shards()],
+               "card_lines": card_lines[:n] if on_card else None,
+               "cores": os.cpu_count(), "threads": torch.get_num_threads(),
+               "steps": reps}
+        for key, fn in fns.items():
+            fn()
+            wall, cpu, shards = [], [], []
+            for _ in range(reps):
+                sync_all()
+                t0, c0 = time.perf_counter(), time.process_time()
+                fn()
+                sync_all()
+                wall.append(time.perf_counter() - t0)
+                cpu.append(time.process_time() - c0)
+                if isinstance(mesh, LocalMesh):
+                    shards.append(mesh.last_run)
+            total = n * corpus_mp if key.startswith("weak") else strong[key]
+            row[key] = {
+                **step_stats(wall, total, n, base, key),
+                "cpu_s_median": float(np.median(cpu)),
+                **{f"shard_{f}_median": [
+                    float(np.median([s[r][f] for s in shards]))
+                    for r in range(n)] if shards else None
+                   for f in ("s", "cpu_s", "collective_s")},
+                "nccl_same_procs": {
+                    k: nccl[n][key][k] for k in (
+                        "step_s_median", "mps", "efficiency",
+                        "rank_cpu_s_median")}
+                if key in nccl.get(n, {}) else None,
+            }
+        rows.append(row)
+        print(json.dumps({"local scaling": n, **{
+            k: [round(row[k]["mps"], 1), round(row[k]["efficiency"], 3)]
+            for k in fns}}), file=sys.stderr, flush=True)
+    return rows
+
+
+def phase_local(rec: Record, sz: dict, run: dict, refs: dict, reps: int,
+                card_lines: list[str], dev0) -> None:
+    """One process over every card, no process group; see the module
+    docstring."""
+    on_card = run["on_card"]
+    count = torch.cuda.device_count() if on_card else 4
+    if on_card:
+        mesh = make_mesh()
+        rec.check("local", "make_mesh() is a mesh over every card",
+                  isinstance(mesh, LocalMesh) and mesh.size == count,
+                  size=mesh.size)
+    else:
+        mesh = local_mesh(count, on_card)
+    t0 = time.perf_counter()
+    checked = local_checks(rec, sz, mesh, run, refs, dev0)
+    checks_s = time.perf_counter() - t0
+    nccl_rows = rec.data["phases"].get("scaling", {}).get("rows", [])
+    rows = local_scaling(sz, refs, reps, on_card, card_lines, nccl_rows)
+    rec.check("local", "a scaling row at 1, 2 and 4 local cards",
+              [r["cards"] for r in rows] == [1, 2, 4])
+    rec.phase("local", cards=count, checks_seconds=round(checks_s, 2),
+              **checked, scaling=rows, baseline_target=BASELINE_TARGET,
+              note=(
+                  "one process, one thread a card, no process group; host "
+                  "clock around steps with every card synchronised, a warm "
+                  "step first; efficiency = MP/s(N) / (N * MP/s(1)); "
+                  "cpu_s: the process's CPU seconds a step (every thread); "
+                  "shard_*: each shard's wall, thread CPU and collective "
+                  "seconds inside the step; nccl_same_procs: the NCCL row "
+                  "of as many ranks from this call's scaling phase"))
 
 
 # ----------------------------------------------------------------- main
@@ -657,7 +931,7 @@ def main(argv: list[str] | None = None) -> int:
         "auto": container.compress(corpus[0], QUALITY, True,
                                    block_index=True),
     }
-    if "nccl" in phases or "two_cuts" in phases:
+    if {"nccl", "two_cuts", "local"} & set(phases):
         big = seeded_image(*sz["big"], 8)
         oracle_big = container.compress(big, QUALITY)
         refs.update(
@@ -688,6 +962,11 @@ def main(argv: list[str] | None = None) -> int:
     if "scaling" in phases:
         phase_scaling(rec, sz, [1, *worlds], run, refs, reps,
                       info["cards"])
+    if "local" in phases:
+        # a rehearsal's CPU shards decode through the plain decoder, many
+        # small torch operations a shard taking turns at the GIL: one step
+        phase_local(rec, sz, run, refs, 1 if rehearse else reps,
+                    info["cards"], dev0)
 
     rec.data["phases_run"] = phases
     rec.data["seconds"] = round(time.perf_counter() - rec.t0, 1)

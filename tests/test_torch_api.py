@@ -213,6 +213,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "from tinyimgcodec_tpu_torch.parallel import make_mesh, tiled\n"
         "assert tiled.encode_tiled(img, 50, mesh=make_mesh(device='cpu')) "
         "== t.compress(img, 50, block_index=False, device='cpu')\n"
+        "local = make_mesh(devices=['cpu'] * 3)\n"
+        "assert tiled.encode_tiled(img, 50, mesh=local) == "
+        "t.compress(img, 50, block_index=False, device='cpu')\n"
+        "from tinyimgcodec_tpu_torch.parallel import batch\n"
+        "assert batch.compress_batch(np.stack([img] * 4), 50, mesh=local, "
+        "block_index=True) == [t.compress(img, 50, device='cpu')] * 4\n"
         "d = t.compress(img, 50, device='cpu')\n"
         "assert t.decompress(d, backend='host').shape == img.shape\n"
         "out = t.decompress_batch([d, d], device='cpu')\n"

@@ -784,6 +784,73 @@ def test_adversarial_battery_on_the_card(cuda):
     assert all(v >= 1 for v in rec["launches"].values()), rec["launches"]
 
 
+def _local_mesh_results(mesh, img, imgs):
+    """The tiled encode (both assemblies, exact and fast), the batch with
+    the index, the sharded fast batch and the sharded decode on ``mesh``."""
+    from tinyimgcodec_tpu_torch.parallel import batch
+    from tinyimgcodec_tpu_torch.parallel.tiled import encode_tiled
+
+    streams = batch.compress_batch(imgs, 50, mesh=mesh, block_index=True)
+    return {
+        "tiled_host": encode_tiled(img, 50, mesh=mesh),
+        "tiled_device": encode_tiled(img, 50, mesh=mesh, assemble="device"),
+        "tiled_fast": encode_tiled(img, 50, mesh=mesh, precision="fast"),
+        "batch": streams,
+        "sharded_fast": batch.compress_batch_sharded(imgs, 50, mesh=mesh),
+        "decoded": batch.decompress_batch_sharded(streams, mesh=mesh),
+    }
+
+
+def _same(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        np.array_equal(a[k], b[k]) if isinstance(a[k], np.ndarray)
+        else a[k] == b[k] for k in a)
+
+
+def test_two_shards_on_one_card_equal_the_world_of_one(cuda):
+    """A local mesh of two shards on card 0, one thread each: the bytes
+    and pixels of the world of one and of the oracle; every launch is
+    counted, on card 0."""
+    from tinyimgcodec_tpu_torch import conformance
+    from tinyimgcodec_tpu_torch.parallel import make_mesh
+
+    img = synthetic_image(100, 123, seed=76)
+    imgs = np.stack([synthetic_image(40, 48, seed=s) for s in range(5)])
+    one = _local_mesh_results(make_mesh(device="cuda:0"), img, imgs)
+    conformance.reset_launch_counts()
+    two = _local_mesh_results(make_mesh(devices=["cuda:0", "cuda:0"]), img,
+                              imgs)
+    totals, by_card = (conformance.launch_counts(),
+                       conformance.launch_counts_by_card())
+    assert _same(two, one)
+    assert two["tiled_host"] == container.compress(img, 50)
+    assert two["batch"] == [container.compress(im, 50, block_index=True)
+                            for im in imgs]
+    for k in ("exact_transform", "encode2", "place", "entropy_decode"):
+        assert by_card[k] == {0: totals[k]} and totals[k] >= 2, (k, by_card)
+
+
+def test_make_mesh_spans_every_card(two_cards):
+    """Outside a process group ``make_mesh()`` is a mesh over every card,
+    as the JAX package's over ``jax.devices()``: card 0's bytes and
+    pixels, and every card launched the encode and decode kernels."""
+    from tinyimgcodec_tpu_torch import conformance
+    from tinyimgcodec_tpu_torch.parallel import make_mesh
+
+    img = synthetic_image(100, 123, seed=76)
+    imgs = np.stack([synthetic_image(40, 48, seed=s) for s in range(9)])
+    one = _local_mesh_results(make_mesh(device=two_cards[0]), img, imgs)
+    mesh = make_mesh()
+    count = torch.cuda.device_count()
+    assert mesh.size == count
+    conformance.reset_launch_counts()
+    assert _same(_local_mesh_results(mesh, img, imgs), one)
+    by_card = conformance.launch_counts_by_card()
+    for k in ("exact_transform", "encode2", "place", "entropy_decode"):
+        assert sorted(by_card[k]) == list(range(count)), (k, by_card)
+    assert torch.cuda.current_device() == 0
+
+
 @pytest.fixture
 def two_cards(cuda):
     """Cards 0 and 1, card 0 current (decided here, not at import)."""

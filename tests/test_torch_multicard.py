@@ -221,6 +221,10 @@ def test_multicard_script_rehearses_on_the_cpu(tmp_path):
     assert rec["rehearsal"] and rec["all_passed"], [
         c for c in rec["checks"] if not c["passed"]]
     assert list(rec["phases"]) == ["cards", "per_card", "nccl", "two_cuts",
-                                   "failure", "scaling"]
+                                   "failure", "scaling", "local"]
     assert [r["procs"] for r in rec["phases"]["scaling"]["rows"]] == [1, 2, 4]
     assert rec["phases"]["failure"]["ranks_raised"] == [0, 1, 2, 3]
+    local = rec["phases"]["local"]
+    assert [r["cards"] for r in local["scaling"]] == [1, 2, 4]
+    assert local["scaling"][2]["devices"] == ["cpu"] * 4
+    assert sum(c["phase"] == "local" for c in rec["checks"]) >= 10

@@ -17,7 +17,9 @@ callers exit non-zero on ``all_passed == False``.
 The kernel launch counters (each wrapper's ``launches``) are read as
 differences, never reset, so that a caller may count a whole battery as
 one path.  They count CUDA launches only: on the CPU the checks that read
-them record ``launches: None`` and rest on the bytes alone.
+them record ``launches: None`` and rest on the bytes alone.  Each wrapper
+also counts by card (``launches_by_card``), under a lock, so that the
+shards of a local mesh, one thread a card, lose no count.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ import torch
 from . import api, container, golden, huffman, metrics
 from .device import resolve_device
 from .engine import KERNEL_BLOCK_BITS, Engine
-from .ops import encode1, encode2, entropy_decode, exact_transform, place
+from .ops import _build, encode1, encode2, entropy_decode, exact_transform
+from .ops import place
 from .ops import stitch
 from .ops import transform
 from .ops.entropy_decode import prepare_batch
@@ -76,6 +79,23 @@ def launch_counts() -> dict[str, int]:
     out["encode2_pixels"] = encode2.launches_by_input["pixels"]
     out["encode2_zz"] = encode2.launches_by_input["zz"]
     return out
+
+
+def launch_counts_by_card() -> dict[str, dict[int, int]]:
+    """Every kernel wrapper's launch count on each card (by index), for
+    the cards it launched on."""
+    with _build.COUNT_LOCK:
+        return {k: dict(m.launches_by_card) for k, m in _KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    """Every count of :func:`launch_counts` and
+    :func:`launch_counts_by_card` to 0."""
+    with _build.COUNT_LOCK:
+        for m in _KERNELS.values():
+            m.launches = 0
+            m.launches_by_card = {}
+        encode2.launches_by_input = {"pixels": 0, "zz": 0}
 
 
 def _since(before: dict[str, int]) -> dict[str, int]:

@@ -6,7 +6,9 @@ image, so a job checkpoints image by image: a manifest (written
 atomically) records which inputs are done, and running the job again
 skips them.  Each stream lands in its own file as soon as its batch is
 encoded.  Same-shaped images go through ``compress_batch`` in batches of
-``batch_size``; the manifest is still written after every image.
+``batch_size``; the manifest is still written after every image.  On a
+mesh of several devices (by default every visible card) a batch is split
+over them by ``parallel.batch.compress_batch``, as the JAX job does.
 """
 
 from __future__ import annotations
@@ -19,14 +21,20 @@ import numpy as np
 import torch
 
 from . import api
+from .parallel import Mesh, make_mesh
+from .parallel.batch import compress_batch as sharded_compress_batch
 
 
 class CorpusEncodeJob:
     """Encode a set of images to ``<name>.img`` files with resume support.
 
-    ``device``: where the codec runs (``None`` = the card, as every entry
-    point of the port); ``backend="host"`` writes the float64 oracle's
-    streams and needs no device."""
+    ``mesh``: the devices a batch is split over (``None``:
+    :func:`parallel.make_mesh` on ``device`` -- every visible card when
+    ``device`` is ``None``, else that device alone); a mesh of one runs
+    ``api.compress_batch`` on its device, a larger one
+    ``parallel.batch.compress_batch`` with the block index, the same
+    bytes.  ``backend="host"`` writes the float64 oracle's streams and
+    needs no device."""
 
     def __init__(
         self,
@@ -35,12 +43,14 @@ class CorpusEncodeJob:
         backend: str = "auto",
         batch_size: int = 16,
         device: str | torch.device | None = None,
+        mesh: Mesh | None = None,
     ) -> None:
         self.out_dir = out_dir
         self.quality = quality
         self.backend = backend
         self.batch_size = batch_size
         self.device = device
+        self._mesh = mesh
         self.manifest_path = os.path.join(out_dir, "manifest.json")
         os.makedirs(out_dir, exist_ok=True)
         self._manifest = self._load_manifest()
@@ -60,6 +70,23 @@ class CorpusEncodeJob:
         with os.fdopen(fd, "w") as f:
             json.dump(self._manifest, f)
         os.replace(tmp, self.manifest_path)
+
+    def _encode_batch(self, batch: np.ndarray) -> list[bytes]:
+        """A same-shaped batch -> its streams with the block index: the
+        oracle's on the host, else over the mesh (made at first use)."""
+        if self.backend == "host":
+            return api.compress_batch(batch, quality=self.quality,
+                                      backend="host")
+        if self._mesh is None:
+            self._mesh = make_mesh(device=self.device)
+        if self._mesh.size == 1:
+            return api.compress_batch(batch, quality=self.quality,
+                                      backend=self.backend,
+                                      device=self._mesh.device)
+        # block_index=True: the public API's default trailer, so that a
+        # mesh's files equal one device's
+        return sharded_compress_batch(batch, quality=self.quality,
+                                      mesh=self._mesh, block_index=True)
 
     def pending(self, names: list[str]) -> list[str]:
         done = self._manifest["done"]
@@ -83,10 +110,8 @@ class CorpusEncodeJob:
 
         done_count = 0
         for chunk in chunks:
-            streams = api.compress_batch(
-                np.stack([images[n] for n in chunk]), quality=self.quality,
-                backend=self.backend, device=self.device,
-            )
+            streams = self._encode_batch(np.stack([images[n]
+                                                   for n in chunk]))
             for name, data in zip(chunk, streams):
                 tmp = out_paths[name] + ".tmp"
                 with open(tmp, "wb") as f:

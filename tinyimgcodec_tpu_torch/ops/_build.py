@@ -44,6 +44,9 @@ NVCC_FLAGS = (
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+# held while a wrapper's launch counters change: the shards of a local
+# mesh launch from several threads at once
+COUNT_LOCK = threading.Lock()
 build_log: dict[str, str] = {}
 
 
@@ -118,6 +121,16 @@ def build_all() -> None:
         started = [(n, *_start(n)) for n in todo]
         for n, st, out in started:
             _finish(n, st, out)
+
+
+def count_launch(counters: dict, device: torch.device) -> None:
+    """One launch on ``device`` added to a wrapper module's counters
+    (``counters`` is its ``globals()``): ``launches`` and, by card index,
+    ``launches_by_card``."""
+    with COUNT_LOCK:
+        counters["launches"] += 1
+        by_card = counters["launches_by_card"]
+        by_card[device.index] = by_card.get(device.index, 0) + 1
 
 
 def stream_handle(device: torch.device) -> int:

@@ -42,6 +42,7 @@ from .encode2 import block_slots, fast_coefficients_plain, pack_slots
 BLOCK_WORDS = 52
 
 launches = 0  # times encode1() launched the CUDA kernel
+launches_by_card: dict[int, int] = {}  # the same count, by card index
 
 
 def _check(x: torch.Tensor, tables: CodecTables, nb: int,
@@ -92,7 +93,6 @@ def encode1(x: torch.Tensor, tables: CodecTables, nb: int,
         return encode1_plain(x, tables, nb, from_zz)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    global launches
     n = _check(x, tables, nb, from_zz)
     x = x.contiguous()
     if not from_zz and x.data_ptr() % 16:
@@ -112,6 +112,6 @@ def encode1(x: torch.Tensor, tables: CodecTables, nb: int,
             _build.stream_handle(x.device),
         )
     _build.check(err, "encode1")
-    launches += 1
+    _build.count_launch(globals(), x.device)
     # the flag is 0 or 1: its first byte read as a bool, no launch
     return words, bits, over.view(torch.bool)[0]

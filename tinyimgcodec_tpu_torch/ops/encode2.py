@@ -61,6 +61,7 @@ MAX_BLOCKS = (2 ** 31 - 1) // (52 * 32 + 7)
 _M32 = 0xFFFFFFFF
 
 launches = 0  # times encode2() launched the CUDA kernels
+launches_by_card: dict[int, int] = {}  # the same count, by card index
 launches_by_input = {"pixels": 0, "zz": 0}  # the same count, by input form
 transform_launches = 0  # times fast_coefficients() launched its kernel
 
@@ -287,7 +288,8 @@ def fast_coefficients(pixels: torch.Tensor,
             _build.stream_handle(pixels.device),
         )
     _build.check(err, "encode2 fast transform")
-    transform_launches += 1
+    with _build.COUNT_LOCK:
+        transform_launches += 1
     return zz
 
 
@@ -300,7 +302,6 @@ def encode2(x: torch.Tensor, tables: CodecTables, nb: int,
         return encode2_plain(x, tables, nb, from_zz, dc_init)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    global launches
     n = _check(x, tables, nb, from_zz, dc_init)
     if dc_init is not None:
         dc_init = dc_init.contiguous()
@@ -324,6 +325,7 @@ def encode2(x: torch.Tensor, tables: CodecTables, nb: int,
             _build.stream_handle(dev),
         )
     _build.check(err, "encode2")
-    launches += 1
-    launches_by_input["zz" if from_zz else "pixels"] += 1
+    _build.count_launch(globals(), dev)
+    with _build.COUNT_LOCK:
+        launches_by_input["zz" if from_zz else "pixels"] += 1
     return packed, meta, scan[1] != 0

@@ -55,6 +55,7 @@ MAX_BLOCK_SYMBOLS = 68
 MAX_PAYLOAD_BITS = 2 ** 31
 
 launches = 0  # times the CUDA kernel was launched through the wrapper
+launches_by_card: dict[int, int] = {}  # the same count, by card index
 
 # Launch shape of the kernel (see :func:`launch_shape`): the best measured
 # on an H100 at 12 544 chunks and within the spread of the best at 3136
@@ -465,7 +466,6 @@ def entropy_decode_chunks(
             chunk_end_lo, chunk_end_hi, nb_total, tables)
     if words.device.type != "cuda":
         raise ValueError(f"unsupported device {words.device}")
-    global launches
     arrays = [a.contiguous() for a in (
         chunk_start, chunk_blocks, chunk_block_base, chunk_end_lo,
         chunk_end_hi)]
@@ -474,5 +474,5 @@ def entropy_decode_chunks(
     zz = torch.zeros((nb_total, 64), dtype=torch.int32, device=words.device)
     ok = torch.empty((c,), dtype=torch.bool, device=words.device)
     launch_kernel(words, arrays, tables, zz, ok)
-    launches += 1
+    _build.count_launch(globals(), words.device)
     return zz, ok

@@ -34,6 +34,7 @@ from . import _build
 TIE_SNAP = 1e-9
 
 launches = 0  # times the CUDA kernel was launched through the wrapper
+launches_by_card: dict[int, int] = {}  # the same count, by card index
 
 
 def exact_transform_plain(
@@ -84,7 +85,6 @@ def exact_transform(
         return exact_transform_plain(pixels, tables)
     if pixels.device.type != "cuda":
         raise ValueError(f"unsupported device {pixels.device}")
-    global launches
     pixels = pixels.contiguous()
     n = pixels.shape[0]
     zz = torch.empty((64, n), dtype=torch.int32, device=pixels.device)
@@ -97,5 +97,5 @@ def exact_transform(
             flags.data_ptr(), n, _build.stream_handle(pixels.device),
         )
     _build.check(err, "exact_transform")
-    launches += 1
+    _build.count_launch(globals(), pixels.device)
     return zz, flags

@@ -37,6 +37,7 @@ from . import _build
 ROW_WORDS = 56
 
 launches = 0  # times the CUDA kernel was launched through the wrapper
+launches_by_card: dict[int, int] = {}  # the same count, by card index
 
 
 def _check(packed: torch.Tensor, meta: torch.Tensor, nb: int) -> int:
@@ -116,7 +117,6 @@ def place(packed: torch.Tensor, meta: torch.Tensor, nb: int, cap_words: int):
         return place_plain(packed, meta, nb, cap_words)
     if packed.device.type != "cuda":
         raise ValueError(f"unsupported device {packed.device}")
-    global launches
     n = _check(packed, meta, nb)
     cap_words = int(cap_words)
     if not 0 < cap_words < 1 << 31:
@@ -128,7 +128,7 @@ def place(packed: torch.Tensor, meta: torch.Tensor, nb: int, cap_words: int):
     stream = torch.empty(cap_words, **i32)
     summary = torch.empty(nimg + 2, **i32)
     launch_kernel(packed, meta, stream, nb, summary)
-    launches += 1
+    _build.count_launch(globals(), packed.device)
     # the flag is 0 or 1: its first byte read as a bool, no launch
     overflow = summary.view(torch.bool)[4 * nimg + 4]
     return stream, summary[:nimg], summary[nimg], overflow

@@ -38,6 +38,7 @@ SPAN = 256  # blocks a CTA of the kernel takes (csrc/stitch.cu)
 _M32 = 0xFFFFFFFF
 
 launches = 0  # times the CUDA kernels were launched through the wrapper
+launches_by_card: dict[int, int] = {}  # the same count, by card index
 
 
 def _check(words: torch.Tensor, bits: torch.Tensor, nb: int,
@@ -127,7 +128,6 @@ def stitch(words: torch.Tensor, bits: torch.Tensor, nb: int, cap_words: int):
         return stitch_plain(words, bits, nb, cap_words)
     if words.device.type != "cuda":
         raise ValueError(f"unsupported device {words.device}")
-    global launches
     cap_words = int(cap_words)
     n = _check(words, bits, nb, cap_words)
     words = words.contiguous()
@@ -135,5 +135,5 @@ def stitch(words: torch.Tensor, bits: torch.Tensor, nb: int, cap_words: int):
     nimg = n // nb
     stream = torch.empty(cap_words, dtype=torch.int32, device=words.device)
     summary = launch_kernels(words, bits, nb, stream)
-    launches += 1
+    _build.count_launch(globals(), words.device)
     return stream, summary[:nimg], summary[nimg], summary[nimg + 1]

@@ -1,13 +1,15 @@
-"""Scale-out over processes: one image cut into block ranges, batches of
-images split over ranks, and a double-buffered image stream.
+"""Scale-out over devices: one image cut into block ranges, batches of
+images split over shards, and a double-buffered image stream.
 
-The counterpart of the JAX package's ``parallel`` package on
-``torch.distributed``:
+The counterpart of the JAX package's ``parallel`` package:
 
-- :mod:`.mesh` -- a 1-D mesh over the ranks of a process group (NCCL on
-  the card, gloo on the CPU), ``init_distributed`` and ``spawn``.
+- :mod:`.mesh` -- a 1-D mesh over every card of this process (one thread
+  a card, the default of ``make_mesh()`` outside a process group, as
+  JAX's mesh over ``jax.devices()``) or over the ranks of a
+  ``torch.distributed`` process group (NCCL on the card, gloo on the
+  CPU); ``init_distributed`` and ``spawn``.
 - :mod:`.tiled` -- one image's blocks split into contiguous ranges over
-  the ranks and, within a rank, into calls of at most
+  the shards and, within a shard, into calls of at most
   ``pipeline.MAX_PIXELS`` pixels, with the DC predictor carried across
   every cut and the segments stitched at bit offsets.  It is also the
   path of a single image larger than one call of the kernels.
@@ -17,5 +19,6 @@ The counterpart of the JAX package's ``parallel`` package on
 """
 
 from .mesh import (  # noqa: F401
-    Mesh, RankFailure, init_distributed, make_mesh, rank_card, spawn,
+    LocalMesh, Mesh, RankFailure, init_distributed, make_mesh, rank_card,
+    spawn,
 )

@@ -1,13 +1,15 @@
-"""Data-parallel batches: images split over the ranks of a mesh.
+"""Data-parallel batches: images split over the shards of a mesh.
 
 The counterpart of the JAX package's ``parallel/batch.py``.  Each image is
-a self-contained stream, so nothing is carried across ranks: the batch is
-split into one group of ``ceil(B / world)`` consecutive images a rank (the
-last group padded with repeats of the last image, so every rank runs the
-same shapes), each rank runs the port's pipeline on its group --
-``exact_transform`` (exact), ``encode2`` and ``place``, with the float64
-recompute of its own flagged blocks, or the decode kernel -- and the
-results are all-gathered in the caller's order, the padding dropped.
+a self-contained stream, so nothing is carried across shards: the batch is
+split into one group of ``ceil(B / n)`` consecutive images a shard (the
+last group padded with repeats of the last image, so every shard runs the
+same shapes), each shard runs the port's pipeline on its group on its own
+device -- ``exact_transform`` (exact), ``encode2`` and ``place``, with the
+float64 recompute of its own flagged blocks, or the decode kernel -- and
+the results are all-gathered in the caller's order, the padding dropped.
+A shard is a card of this process (the default mesh: every visible card)
+or a rank of a process group (``parallel.mesh``).
 
 Exact mode gives the float64 oracle's bytes whatever the world size.  Not
 carried over from the JAX package: its XLA batch programs
@@ -28,35 +30,41 @@ from ..pipeline import TableRangeError, compress_batch_device
 from .mesh import Mesh, make_mesh
 
 
-def _group(b: int, mesh: Mesh) -> list[int]:
-    """The batch indices of this rank: ``ceil(b / world)`` of them, those
-    past the batch repeating its last image."""
-    per = -(-b // mesh.size)
-    return [min(i, b - 1) for i in range(mesh.rank * per,
-                                         (mesh.rank + 1) * per)]
+def _group(b: int, size: int, rank: int) -> list[int]:
+    """The batch indices of shard ``rank`` of ``size``: ``ceil(b / size)``
+    of them, those past the batch repeating its last image."""
+    per = -(-b // size)
+    return [min(i, b - 1) for i in range(rank * per, (rank + 1) * per)]
 
 
 def stage_images(images: np.ndarray, mesh: Mesh | None = None):
-    """This rank's images, reflect-padded to block multiples, as a
-    (per, H8, W8) uint8 tensor on the mesh's device, and the batch's size:
-    the ``staged`` argument of :func:`compress_batch` (which then skips the
-    host-to-device transfer)."""
+    """The images of this process's shards, reflect-padded to block
+    multiples, each group as a (per, H8, W8) uint8 tensor on its shard's
+    device -- one tensor, or a tuple of them, one a shard of a local mesh
+    -- and the batch's size: the ``staged`` argument of
+    :func:`compress_batch` (which then skips the host-to-device
+    transfer)."""
     if mesh is None:
         mesh = make_mesh()
     images = np.asarray(images)
     if images.ndim != 3 or images.shape[0] < 1:
         raise ValueError("expected a non-empty (B, H, W) batch")
-    own = images[_group(images.shape[0], mesh)]
-    padded = np.ascontiguousarray(transform.pad_to_blocks(own),
-                                  dtype=np.uint8)
-    return torch.from_numpy(padded).to(mesh.device), images.shape[0]
+    b = images.shape[0]
+    staged = tuple(
+        torch.from_numpy(np.ascontiguousarray(
+            transform.pad_to_blocks(images[_group(b, mesh.size, r)]),
+            dtype=np.uint8)).to(dev)
+        for r, dev in mesh.shards())
+    return (staged if len(staged) > 1 else staged[0]), b
 
 
-def _encode_groups(images, quality, mesh, precision, bits_per_pixel_budget,
+def _encode_groups(mesh, images, quality, precision, bits_per_pixel_budget,
                    staged, block_index, index_stride) -> list[bytes]:
     if staged is None:
         staged = stage_images(images, mesh)
     local, b = staged
+    if isinstance(local, tuple):  # one tensor a shard of a local mesh
+        local = local[mesh.rank]
     true_shape = (tuple(np.shape(images)[1:3]) if images is not None
                   else tuple(local.shape[1:]))
     refused = None
@@ -68,8 +76,8 @@ def _encode_groups(images, quality, mesh, precision, bits_per_pixel_budget,
         )
     except TableRangeError as e:
         refused = e
-    # a refusal of one rank's images is raised on every rank, before any
-    # of them waits in the gather for a rank that will not come
+    # a refusal of one shard's images is raised on every shard, before any
+    # of them waits in the gather for a shard that will not come
     if mesh.any(refused is not None):
         raise refused or TableRangeError(
             "coefficient out of Huffman table range on another rank")
@@ -89,24 +97,25 @@ def compress_batch(
     device: str | torch.device | None = None,
 ) -> list[bytes]:
     """(B, H, W) same-shaped grayscale images -> one stream an image, in
-    order, on every rank.
+    order (on every rank of a process group).
 
     ``assemble``: ``"host"`` or ``"device"``, the JAX package's two modes.
     In the port both run the same kernels, which assemble every stream on
     the card, and both give the oracle's bytes in exact mode;
     ``block_index`` needs ``"host"``, as in the JAX package.  ``staged``:
-    ``(tensor, B)`` from :func:`stage_images` (``images`` may then be
-    ``None``, and the header takes the padded size).  ``device``: the
-    device of the default mesh (``None`` = the card)."""
+    what :func:`stage_images` returned for the same mesh (``images`` may
+    then be ``None``, and the header takes the padded size).  ``mesh=None``:
+    :func:`make_mesh` -- every visible card, as the JAX function's mesh
+    over ``jax.devices()``, or a world of one on ``device`` when that is
+    given."""
     if assemble not in ("host", "device"):
         raise ValueError(f"unknown assemble mode {assemble!r}")
     if block_index and assemble != "host":
         raise ValueError("block_index requires assemble='host'")
     if mesh is None:
         mesh = make_mesh(device=device)
-    return _encode_groups(images, quality, mesh, precision,
-                          bits_per_pixel_budget, staged, block_index,
-                          index_stride)
+    return mesh.run(_encode_groups, images, quality, precision,
+                    bits_per_pixel_budget, staged, block_index, index_stride)
 
 
 def compress_batch_sharded(
@@ -119,15 +128,16 @@ def compress_batch_sharded(
     device: str | torch.device | None = None,
 ) -> list[bytes]:
     """The counterpart of the JAX package's
-    ``compress_batch_pallas_sharded``: every rank runs ``exact_transform``
+    ``compress_batch_pallas_sharded``: every shard runs ``exact_transform``
     (exact) / ``encode2`` / ``place`` on its group and recomputes its own
     flagged blocks -- the bytes of the JAX stage 1 -> host -> stage 2, the
-    oracle's in exact mode.  No trailer."""
+    oracle's in exact mode.  No trailer.  ``mesh`` and ``device`` as in
+    :func:`compress_batch`."""
     if mesh is None:
         mesh = make_mesh(device=device)
-    return _encode_groups(images, quality, mesh, precision,
-                          bits_per_pixel_budget, staged, False,
-                          container.INDEX_STRIDE)
+    return mesh.run(_encode_groups, images, quality, precision,
+                    bits_per_pixel_budget, staged, False,
+                    container.INDEX_STRIDE)
 
 
 def decompress_batch_sharded(
@@ -137,20 +147,25 @@ def decompress_batch_sharded(
     device: str | torch.device | None = None,
 ) -> np.ndarray | None:
     """Same-shaped TICX standard-table streams -> (B, H, W) uint8, every
-    rank decoding its group through ``Engine.decompress_batch`` (the
+    shard decoding its group through ``Engine.decompress_batch`` (the
     ``entropy_decode`` kernel; an image with a corrupt chunk degrades to
     the host decoder, as there), the pixels gathered in order.
 
     ``None`` where the JAX function returns it: an empty list, a stream
     without a valid trailer, custom tables, groups of different shapes.
-    Every rank reaches the same answer (the groups' keys are
-    all-gathered); the caller routes such streams elsewhere."""
+    Every shard reaches the same answer (the groups' keys are
+    all-gathered); the caller routes such streams elsewhere.  ``mesh`` and
+    ``device`` as in :func:`compress_batch`."""
     if not streams:
         return None
     if mesh is None:
         mesh = make_mesh(device=device)
+    return mesh.run(_decode_groups, streams, precision)
+
+
+def _decode_groups(mesh: Mesh, streams: list[bytes], precision: str):
     b = len(streams)
-    group = [streams[i] for i in _group(b, mesh)]
+    group = [streams[i] for i in _group(b, mesh.size, mesh.rank)]
     prep = prepare_batch(group)
     if prep is None:
         key = [-1] * 6
@@ -163,4 +178,6 @@ def decompress_batch_sharded(
         return None
     imgs = Engine(precision, mesh.device).decompress_batch(group)
     out = mesh.all_gather(torch.from_numpy(np.ascontiguousarray(imgs)))
+    if not mesh.result_wanted:
+        return None
     return torch.cat([t.cpu() for t in out]).numpy()[:b]

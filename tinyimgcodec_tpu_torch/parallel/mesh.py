@@ -1,12 +1,27 @@
-"""A 1-D mesh over the ranks of a ``torch.distributed`` process group.
+"""A 1-D mesh: the ranks of a ``torch.distributed`` process group, or the
+devices of this one process.
 
-The counterpart of the JAX package's ``parallel/mesh.py``.  One process
-drives one device; the codec shards along one axis -- images, or the
-block ranges of one image -- so a mesh is the group's ranks in order.
-Collectives move their tensors on the group's device: the card under
-NCCL, the CPU under gloo (whose ``all_gather`` takes no CUDA tensor).  A
-mesh with no group is a world of one, and its collectives return their
-input.
+The counterpart of the JAX package's ``parallel/mesh.py``.  The codec
+shards along one axis -- images, or the block ranges of one image -- so a
+mesh is its shards in order, and every parallel entry point runs one SPMD
+body on each shard (:meth:`Mesh.run`), which talks to the others only
+through four collectives: ``all_gather``, ``all_gather_varlen``, ``any``
+and ``all_gather_bytes``.  Two kinds of mesh carry that body:
+
+- **a process group**, one device a process (rank): the collectives move
+  their tensors on the group's device -- the card under NCCL, the CPU
+  under gloo (whose ``all_gather`` takes no CUDA tensor).  With no group
+  and one device, a world of one whose collectives return their input.
+- **a local mesh** (:class:`LocalMesh`), several devices of this process,
+  as JAX's mesh over ``jax.devices()``: one host thread a shard, each with
+  its card made current; the collectives hand tensors between the shard
+  threads through shared slots and a barrier, each tensor left on its
+  shard's device (a reader moves what it reads with ``.to``).  A shard
+  that raises breaks the barrier, so no other shard waits for it, and the
+  caller gets one exception.  This is ``shard_map`` over a local mesh.
+
+A group of processes that each drive several cards (JAX's multi-host
+mesh) is not supported.
 """
 
 from __future__ import annotations
@@ -16,38 +31,86 @@ import os
 import pickle
 import socket
 import tempfile
+import threading
+import time
 import traceback
 
 import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+from ..ops import _build
+
+
+class _Exchange:
+    """The slots and the barrier that the shard threads of one
+    :meth:`LocalMesh.run` share, and each shard's seconds spent in
+    collectives."""
+
+    def __init__(self, n: int):
+        self.barrier = threading.Barrier(n)
+        self.slots: list = [None] * n
+        self.wait_s = [0.0] * n
+
+    def gather(self, rank: int, value) -> list:
+        """Every shard's ``value``, in shard order.  The second wait keeps
+        a shard from writing its next value before all have read this
+        one's."""
+        t0 = time.perf_counter()
+        self.slots[rank] = value
+        self.barrier.wait()
+        out = list(self.slots)
+        self.barrier.wait()
+        self.wait_s[rank] += time.perf_counter() - t0
+        return out
 
 
 class Mesh:
-    """The process group (``None`` for a world of one), its size, this
-    process's rank, the device this process computes on, and the name of
-    the mesh's one axis."""
+    """One shard's view of a mesh: the process group (``None`` for a world
+    of one and for a shard of a :class:`LocalMesh`), the number of shards,
+    this shard's rank, the device it computes on, and the name of the
+    mesh's one axis."""
 
     def __init__(self, group, size: int, rank: int, device: torch.device,
-                 axis: str = "batch"):
+                 axis: str = "batch", exchange: _Exchange | None = None):
         self.group = group
         self.size = size
         self.rank = rank
         self.device = device
         self.axis = axis
+        self._exchange = exchange
 
     @property
     def comm_device(self) -> torch.device:
         """Where the collectives' tensors live: the CPU under gloo, this
-        process's card (with its index) under NCCL."""
+        process's card (with its index) under NCCL, each shard's own
+        device in a local mesh."""
         if self.group is not None and dist.get_backend(self.group) == "gloo":
             return torch.device("cpu")
         return self.device
 
+    @property
+    def result_wanted(self) -> bool:
+        """Whether this shard's result is returned: on every rank of a
+        process group, only shard 0's of a local mesh (the others may skip
+        assembling it once they have handed over their part)."""
+        return self._exchange is None or self.rank == 0
+
+    def shards(self) -> list[tuple[int, torch.device]]:
+        """The ranks and devices of the shards this process computes."""
+        return [(self.rank, self.device)]
+
+    def run(self, body, *args):
+        """``body(shard, *args)`` on every shard of this process; returns
+        the result of shard 0 (here: of this process's one shard)."""
+        return body(self, *args)
+
     def all_gather(self, t: torch.Tensor) -> list[torch.Tensor]:
         """Every rank's ``t`` (one shape on all ranks), in rank order, on
-        :attr:`comm_device`."""
+        :attr:`comm_device` (in a local mesh each on its shard's
+        device)."""
+        if self._exchange is not None:
+            return self._exchange.gather(self.rank, t)
         if self.group is None:
             return [t]
         src = t.to(self.comm_device).contiguous()
@@ -58,6 +121,8 @@ class Mesh:
     def all_gather_varlen(self, t: torch.Tensor) -> list[torch.Tensor]:
         """Every rank's 1-D ``t`` of any length, in rank order: the
         lengths first, then the tensors padded to the longest."""
+        if self._exchange is not None:
+            return self._exchange.gather(self.rank, t.reshape(-1))
         if self.group is None:
             return [t]
         lens = [int(k) for k in self.all_gather(
@@ -69,6 +134,8 @@ class Mesh:
 
     def any(self, flag: bool) -> bool:
         """True on every rank if ``flag`` is true on any."""
+        if self._exchange is not None:
+            return any(self._exchange.gather(self.rank, bool(flag)))
         if self.group is None:
             return bool(flag)
         t = torch.tensor([int(bool(flag))], dtype=torch.int32,
@@ -78,6 +145,10 @@ class Mesh:
 
     def all_gather_bytes(self, items: list[bytes]) -> list[bytes]:
         """Every rank's list of byte strings, concatenated in rank order."""
+        if self._exchange is not None:
+            return [x for part in self._exchange.gather(self.rank,
+                                                        list(items))
+                    for x in part]
         if self.group is None:
             return list(items)
         lens = torch.tensor([len(x) for x in items], dtype=torch.int64)
@@ -95,30 +166,146 @@ class Mesh:
         return out
 
 
+class LocalMesh(Mesh):
+    """A mesh over several devices of this one process (a device may
+    repeat: two shards on one card share its default stream, n shards on
+    the CPU are the counterpart of the JAX tests' virtual host devices).
+
+    :meth:`run` builds the kernels first where a shard is a card (all
+    sources at once; a no-op once built), then starts one thread a shard
+    after the first (shard 0 runs on the calling thread), each inside
+    ``torch.cuda.device`` of its card,
+    and joins them all before it returns or raises; ``last_run`` then
+    holds each shard's wall and thread CPU seconds and its seconds in
+    collectives.  The collectives exist only on the shard views that
+    :meth:`run` hands its body."""
+
+    def __init__(self, devices: list[torch.device], axis: str = "batch"):
+        super().__init__(None, len(devices), 0, devices[0], axis)
+        self.devices = list(devices)
+        self.last_run: list[dict] = []
+
+    def shards(self) -> list[tuple[int, torch.device]]:
+        return list(enumerate(self.devices))
+
+    def run(self, body, *args):
+        if any(d.type == "cuda" for d in self.devices):
+            # every compiler at once, before the shards would each wait for
+            # the other's build under the loader's lock
+            _build.build_all()
+        n = self.size
+        exchange = _Exchange(n)
+        results: list = [None] * n
+        errors: list = [None] * n
+        times: list = [None] * n
+
+        def shard(r: int) -> None:
+            dev = self.devices[r]
+            view = Mesh(None, n, r, dev, self.axis, exchange)
+            t0, c0 = time.perf_counter(), time.thread_time()
+            try:
+                if dev.type == "cuda":
+                    with torch.cuda.device(dev):
+                        results[r] = body(view, *args)
+                else:
+                    results[r] = body(view, *args)
+            except BaseException as e:  # noqa: BLE001 -- re-raised below
+                errors[r] = e
+                exchange.barrier.abort()  # no shard waits for this one
+            times[r] = {"device": str(dev),
+                        "s": time.perf_counter() - t0,
+                        "cpu_s": time.thread_time() - c0}
+
+        threads = [threading.Thread(target=shard, args=(r,), daemon=True,
+                                    name=f"tic-mesh-shard-{r}")
+                   for r in range(1, n)]
+        for t in threads:
+            t.start()
+        shard(0)
+        for t in threads:
+            t.join()
+        for r in range(n):
+            times[r]["collective_s"] = exchange.wait_s[r]
+        self.last_run = times
+        failed = [e for e in errors if e is not None]
+        if failed:
+            # a broken barrier is only the echo of another shard's error
+            # (a shard released by a barrier that another then breaks may
+            # wake to the break: its result is lost, but the run raises)
+            own = [e for e in failed
+                   if not isinstance(e, threading.BrokenBarrierError)]
+            raise (own or failed)[0]
+        return results[0]
+
+    def _not_a_shard(self, *_):
+        raise RuntimeError("a LocalMesh's collectives exist only inside "
+                           "LocalMesh.run, on the shard it hands its body")
+
+    all_gather = all_gather_varlen = any = all_gather_bytes = _not_a_shard
+
+
+def _in_group() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
 def make_mesh(n_devices: int | None = None, axis: str = "batch",
-              device: str | torch.device | None = None) -> Mesh:
-    """A mesh over the initialised default process group, or a world of
-    one when none is initialised.  ``n_devices``: ``None`` or the group's
-    size for the whole group, 1 for this process alone; more than the
-    group has raises ``ValueError``, as the JAX function does.
-    ``device``: what this process computes on (``None`` = the card)."""
-    dev = resolve_device(device)
-    if dist.is_available() and dist.is_initialized():
-        world, rank = dist.get_world_size(), dist.get_rank()
+              device: str | torch.device | None = None,
+              devices: list | None = None) -> Mesh:
+    """A mesh, as the JAX function's over ``jax.devices()[:n_devices]``.
+
+    Outside a process group: with neither ``device`` nor ``devices``, a
+    :class:`LocalMesh` over the first ``n_devices`` visible cards
+    ``cuda:0..n-1`` (``None``: all of them; one card is the current one,
+    a plain world of one); more than ``torch.cuda.device_count()`` raises
+    ``ValueError("requested n devices, have m")``, no card
+    ``RuntimeError``.  ``device``: a world of one on it (``n_devices``
+    ``None`` or 1).  ``devices``: an explicit list, repeats allowed (the
+    first ``n_devices`` of it when that is given).
+
+    Inside an initialised default process group: the group's ranks, one
+    device a process (``device``, ``None`` = the card); ``n_devices``
+    ``None`` or the group's size for the whole group, 1 for this process
+    alone.  Several devices a process in a group (JAX's multi-host mesh)
+    raise ``ValueError``."""
+    if device is not None and devices is not None:
+        raise ValueError("give device or devices, not both")
+    if devices is not None:
+        devs = [resolve_device(d) for d in devices]
+        if n_devices is not None:
+            if int(n_devices) > len(devs):
+                raise ValueError(
+                    f"requested {n_devices} devices, have {len(devs)}")
+            devs = devs[:int(n_devices)]
+        if not devs:
+            raise ValueError("requested 0 devices")
+        if len(devs) > 1 and _in_group():
+            raise ValueError(
+                f"a mesh of {len(devs)} devices in each process of a group "
+                "of processes (JAX's multi-host mesh) is not supported: one "
+                "device a rank, or one process over its devices")
+        if len(devs) > 1:
+            return LocalMesh(devs, axis)
+        device, n_devices = devs[0], None
+    dev = resolve_device(device)  # raises without a card unless asked
+    group = _in_group()
+    if group:
+        have = dist.get_world_size()
     else:
-        world, rank = 1, 0
-    n = world if n_devices is None else int(n_devices)
-    if n > world:
-        raise ValueError(f"requested {n} devices, have {world}")
+        have = 1 if device is not None else torch.cuda.device_count()
+    n = have if n_devices is None else int(n_devices)
+    if n > have:
+        raise ValueError(f"requested {n} devices, have {have}")
     if n < 1:
         raise ValueError(f"requested {n} devices")
-    if n == world and dist.is_available() and dist.is_initialized():
-        return Mesh(dist.group.WORLD, world, rank, dev, axis)
+    if group and n == have:
+        return Mesh(dist.group.WORLD, have, dist.get_rank(), dev, axis)
     if n == 1:
         return Mesh(None, 1, 0, dev, axis)
-    raise ValueError(
-        f"a mesh of {n} of the group's {world} processes: a mesh spans the "
-        "whole group or one process")
+    if group:
+        raise ValueError(
+            f"a mesh of {n} of the group's {have} processes: a mesh spans "
+            "the whole group or one process")
+    return LocalMesh([torch.device("cuda", k) for k in range(n)], axis)
 
 
 def rank_card(rank: int) -> int:

@@ -1,33 +1,37 @@
-"""One image encoded in block ranges, over the ranks of a mesh.
+"""One image encoded in block ranges, over the shards of a mesh.
 
 The counterpart of the JAX package's ``parallel/tiled.py`` (BASELINE
-config 4: a 4K+ image tiled across devices).  Design:
+config 4: a 4K+ image tiled across devices).  A shard is a card of this
+process (the default mesh: every visible card) or a rank of a process
+group (``parallel.mesh``).  Design:
 
 - the image's 8x8 blocks, in raster order, are split into one contiguous
-  range a rank (``ceil(nb / world)`` blocks each; when ``nb < world`` the
-  last ranks get none, launch nothing and add an empty segment);
-- within a rank the range is cut again into sub-ranges of at most
+  range a shard (``ceil(nb / n)`` blocks each; when ``nb < n`` the
+  last shards get none, launch nothing and add an empty segment);
+- within a shard the range is cut again into sub-ranges of at most
   ``pipeline.MAX_PIXELS // 64`` blocks, one call of the kernels each, so
   that every call keeps its block bit offsets in int32 (on one card this
   cut alone is what lets an image pass ``MAX_PIXELS``);
 - a sub-range is ``exact_coefficients`` (exact) or ``fast_coefficients``
   (fast), then ``encode2(..., from_zz=True, dc_init=...)`` and ``place``
   as one image: the DC predictor of its first block is the last DC of
-  the sub-range before it, which stays on the device; across ranks it is
-  an ``all_gather`` of every rank's last DC (the JAX ``ppermute``), rank r
-  taking rank r - 1's and rank 0 zero;
+  the sub-range before it, which stays on the device; across shards it
+  is an ``all_gather`` of every shard's last DC (the JAX ``ppermute``),
+  shard r taking shard r - 1's and shard 0 zero;
 - segments are stitched at bit offsets, not byte offsets (the image
   starts once), computed in int64: ``assemble="host"`` pulls them to the
   host and concatenates them there; ``assemble="device"`` concatenates on
-  the card.  Across ranks, the lengths and then the segments are
-  all-gathered and every rank concatenates them in rank order, so every
-  rank returns the stream.  The concatenation is plain torch (one
-  vectorised shift a segment), as the JAX package's was XLA.
+  the card (shard 0's, in a local mesh).  Across shards, the lengths and
+  then the segments are all-gathered and concatenated in shard order, on
+  every rank of a process group (every rank returns the stream) and on
+  shard 0 of a local mesh (whose result is returned).  The concatenation
+  is plain torch (one vectorised shift a segment), as the JAX package's
+  was XLA.
 
 Exact mode gives the float64 oracle's bytes in both assembly modes (the
 port's exact coefficients always equal the oracle's).  A stream over the
 capacity budget is placed again at ``n * 52`` words; a coefficient
-outside the Huffman tables raises ``ValueError`` on every rank.
+outside the Huffman tables raises ``ValueError`` on every shard.
 """
 
 from __future__ import annotations
@@ -145,11 +149,11 @@ def _header(h: int, w: int, quality: int) -> bytes:
     ))
 
 
-def _encode(image, quality: int, mesh: Mesh, precision: str, assemble: str,
+def _encode(mesh: Mesh, image, quality: int, precision: str, assemble: str,
             bits_per_pixel_budget: float, with_offsets: bool = False):
-    """A block-aligned image -> (payload bytes, this rank's block offsets
-    from its range's start or ``None``); the same payload on every
-    rank."""
+    """A block-aligned image -> (payload bytes, this shard's block offsets
+    from its range's start or ``None``); the same payload on every shard
+    whose result is wanted (``None`` on the others)."""
     dev = mesh.device
     nb = (image.shape[0] // 8) * (image.shape[1] // 8)
     start, stop = block_range(nb, mesh.size, mesh.rank)
@@ -157,7 +161,7 @@ def _encode(image, quality: int, mesh: Mesh, precision: str, assemble: str,
     zz_list = range_coefficients(image, start, stop, quality, tables,
                                  precision, dev)
     dc_first = None
-    if mesh.group is not None:
+    if mesh.size > 1:
         last = (zz_list[-1][0, -1:] if zz_list
                 else torch.zeros(1, dtype=torch.int32, device=dev))
         lasts = mesh.all_gather(last.to(torch.int64))
@@ -169,9 +173,11 @@ def _encode(image, quality: int, mesh: Mesh, precision: str, assemble: str,
         raise pipeline.TableRangeError()
     where = dev if assemble == "device" else torch.device("cpu")
     words, bits = concat_bits(segments, where)
-    if mesh.group is not None:
+    if mesh.size > 1:
         all_bits = mesh.all_gather(torch.tensor([bits], dtype=torch.int64))
         all_words = mesh.all_gather_varlen(words)
+        if not mesh.result_wanted:
+            return None, offsets
         words, bits = concat_bits(
             [(w, int(b)) for w, b in zip(all_words, all_bits)], where)
     return pipeline.stream_bytes(words, bits), offsets
@@ -187,11 +193,12 @@ def encode_tiled(
     device: str | torch.device | None = None,
 ) -> bytes:
     """Encode one (H, W) uint8 image block-range-sharded over ``mesh``'s
-    ranks (default: :func:`make_mesh` on ``device``, ``None`` = the card;
-    a given mesh brings its own device).  Every rank passes the image and
-    gets the stream back: header + payload, no trailer -- the bytes of the
-    JAX package's ``encode_tiled``, and in exact mode of
-    ``container.compress``."""
+    shards (``None``: :func:`make_mesh` -- every visible card, as the JAX
+    function's mesh over ``jax.devices()``, or a world of one on
+    ``device`` when that is given).  The stream comes back (on every rank
+    of a process group, each of which passes the image): header +
+    payload, no trailer -- the bytes of the JAX package's
+    ``encode_tiled``, and in exact mode of ``container.compress``."""
     if assemble not in ("host", "device"):
         raise ValueError(f"unknown assemble mode {assemble!r}")
     if precision not in (transform.FAST, transform.EXACT):
@@ -204,8 +211,8 @@ def encode_tiled(
     h, w = image.shape
     padded = np.ascontiguousarray(
         transform.pad_to_blocks(image.astype(np.uint8, copy=False)))
-    payload, _ = _encode(padded, int(quality), mesh, precision, assemble,
-                         bits_per_pixel_budget)
+    payload, _ = mesh.run(_encode, padded, int(quality), precision,
+                          assemble, bits_per_pixel_budget)
     return _header(h, w, int(quality)) + payload
 
 
@@ -216,7 +223,7 @@ def compress_image(image, true_shape: tuple[int, int], quality: int,
     sub-ranges, host assembly: the stream ``compress_batch_device`` writes
     for an image of more than ``MAX_PIXELS`` pixels, TICX trailer
     included when asked for."""
-    payload, offsets = _encode(image, quality, Mesh(None, 1, 0, dev),
+    payload, offsets = _encode(Mesh(None, 1, 0, dev), image, quality,
                                precision, "host", bits_per_pixel_budget,
                                with_offsets=block_index)
     data = _header(*true_shape, quality) + payload

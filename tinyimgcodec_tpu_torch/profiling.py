@@ -92,11 +92,14 @@ def run_record(
     seconds: float,
     extra: dict | None = None,
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> dict:
     """Canonical record of a run (one JSON-able dict): its rate and the
     device it ran on -- the card's name and the number of cards, or
-    ``"cpu"`` when the caller asked for it."""
-    dev = resolve_device(device)
+    ``"cpu"`` when the caller asked for it.  With a ``parallel`` mesh the
+    device is its first shard's and ``n_devices`` its number of shards,
+    as the JAX record's ``len(jax.devices())`` is its mesh's default."""
+    dev = resolve_device(mesh.device if mesh is not None else device)
     on_card = dev.type == "cuda"
     rec = {
         "workload": workload,
@@ -104,7 +107,8 @@ def run_record(
         "seconds": round(seconds, 6),
         "mp_per_s": round(megapixels / seconds, 2) if seconds else None,
         "device": torch.cuda.get_device_name(dev) if on_card else "cpu",
-        "n_devices": torch.cuda.device_count() if on_card else 1,
+        "n_devices": (mesh.size if mesh is not None
+                      else torch.cuda.device_count() if on_card else 1),
         "timestamp": time.time(),
     }
     if extra:
