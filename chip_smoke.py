@@ -32,16 +32,20 @@ The ``parallel`` slice: one 7680x4320 image (past the 16 Mi pixels of one
 kernel call, so encoded in two block ranges) through ``compress``,
 ``decompress`` and ``parallel.tiled.encode_tiled``, a 4096x4104 image with
 auto tables, both against the oracle (phase ``tiled``); the tiled encode,
-``compress_batch_sharded`` and ``decompress_batch_sharded`` in two gloo
-ranks on the one card and in NCCL at a world of one, each rank a process
-of ``parallel.mesh.spawn`` (phase ``sharded``); ``compress_stream`` and
+``compress_batch_sharded``, ``compress_batch`` with the index and
+``decompress_batch_sharded`` in two gloo ranks on the one card and in NCCL
+at a world of one, each rank a process of ``parallel.mesh.spawn`` (phase
+``sharded``); ``compress_stream`` and
 ``decompress_stream`` over the corpus (phase ``stream``).  The same
 entry points on a local mesh, two shards on ``cuda:0`` in this one
 process, one thread a shard (phase ``local_mesh``: the 8K tiled encode,
 the corpus through ``compress_batch`` and ``compress_batch_sharded``, its
 decode through ``decompress_batch_sharded``, and a q=99 refusal on one
 shard), each equal to the world of one's bytes and pixels, with its
-launches counted by card.
+launches counted by card; and on a local mesh in each process of a group,
+two gloo ranks of two shards each, all on ``cuda:0`` (phase
+``group_mesh``: the calls of ``sharded``, every process's launches
+counted by card).
 
 The conformance batteries of ``tinyimgcodec_tpu_torch/conformance.py``
 (phase ``conformance``): adversarial content (noise, checkerboards, a
@@ -2007,14 +2011,16 @@ def phase_encode_to_words(corpus: np.ndarray, exact: list[bytes],
 
 def sharded_rank(mesh, image: np.ndarray, corpus: np.ndarray,
                  exact: list[bytes]) -> dict:
-    """One rank of phase ``sharded`` (a spawned process): the tiled encode
-    of the large image in both modes, the sharded encode of the corpus in
-    both precisions and its sharded decode; the launch counts from a reset
-    just before to a reading just after."""
+    """One process of phases ``sharded`` and ``group_mesh`` (a spawned
+    process): the tiled encode of the large image in both modes, the
+    sharded encode of the corpus in both precisions and its encode with
+    the index in both, its sharded decode; the launch counts, in all and
+    by card, from a reset just before to a reading just after."""
     reset_counts()
     t0 = time.perf_counter()
     out = {
         "rank": mesh.rank, "size": mesh.size, "device": str(mesh.device),
+        "shards": [[r, str(d)] for r, d in mesh.shards()],
         "backend": torch.distributed.get_backend(mesh.group),
         "tiled_host": tiled.encode_tiled(image, 50, mesh=mesh),
         "tiled_device": tiled.encode_tiled(image, 50, mesh=mesh,
@@ -2022,22 +2028,58 @@ def sharded_rank(mesh, image: np.ndarray, corpus: np.ndarray,
         "sharded_exact": pbatch.compress_batch_sharded(
             corpus, 50, mesh=mesh, precision="exact"),
         "sharded_fast": pbatch.compress_batch_sharded(corpus, 50, mesh=mesh),
+        "batch_exact": pbatch.compress_batch(corpus, 50, mesh=mesh,
+                                             block_index=True),
+        "batch_fast": pbatch.compress_batch(corpus, 50, mesh=mesh,
+                                            precision="fast",
+                                            block_index=True),
         "decoded": pbatch.decompress_batch_sharded(exact, mesh=mesh),
     }
     sync()
     out["seconds"] = time.perf_counter() - t0
     out["counts"] = counts()
+    out["by_card"] = conformance.launch_counts_by_card()
+    out["shard_times"] = getattr(mesh, "last_run", None)
     return out
 
 
-def phase_sharded(corpus: np.ndarray, big: dict, exact: list[bytes]) -> dict:
-    """``parallel`` over processes on the one card: two ranks over gloo,
-    each launching its kernels on ``cuda:0`` (NCCL puts no two ranks on
-    one device), then NCCL at a world of one; the same calls in both.  The
-    kernels and ``native/`` were built before the spawn.  A rank that
-    fails fails the run."""
+def check_sharded_rank(phase: str, label: str, r: dict, want: dict,
+                       exact: list[bytes], fast: list[bytes]) -> None:
+    """The bars of one :func:`sharded_rank` result; ``want``:
+    :func:`sharded_want`; ``exact``, ``fast``: the corpus streams."""
+    for key in ("tiled_host", "tiled_device"):
+        if r[key] != want["tiled"]:
+            fail(f"{phase}[{label}]: {key} differs from the oracle")
+    for key in ("sharded_exact", "sharded_fast"):
+        if r[key] != want[key]:
+            fail(f"{phase}[{label}]: {key} differs from compress_batch's "
+                 "bytes")
+    if r["batch_exact"] != exact or r["batch_fast"] != fast:
+        fail(f"{phase}[{label}]: compress_batch with the index differs "
+             "from the corpus streams (sha256)")
+    if not np.array_equal(r["decoded"], want["decoded"]):
+        fail(f"{phase}[{label}]: decompress_batch_sharded differs from "
+             "decompress_batch")
+    if REHEARSE:
+        return
+    got = r["counts"]
+    for k in ("exact_transform", "encode2_zz", "encode2_pixels", "place",
+              "entropy_decode"):
+        if got[k] < 1:
+            fail(f"{phase}[{label}]: {k} was not launched")
+    for k, cards in r["by_card"].items():
+        if set(cards) - {0} or sum(cards.values()) != got[k]:
+            fail(f"{phase}[{label}]: {k} counted {cards} by card, not all "
+                 "on card 0 or not the total")
+
+
+def sharded_want(corpus: np.ndarray, big: dict, exact: list[bytes]) -> dict:
+    """What every rank of phases ``sharded`` and ``group_mesh`` must
+    return: the 8K oracle's stream without its trailer, the corpus
+    streams without theirs (exact) and one card's fast ones, one card's
+    decode."""
     nb = (corpus.shape[1] // 8) * (corpus.shape[2] // 8)
-    want = {
+    return {
         "tiled": big["exact"][:big["pay_end"]],
         "sharded_exact": [s[:container.parse_block_index(s, nb)[2]]
                           for s in exact],
@@ -2045,6 +2087,15 @@ def phase_sharded(corpus: np.ndarray, big: dict, exact: list[bytes]) -> dict:
                                              block_index=False, device=DEV),
         "decoded": codec.decompress_batch(exact, device=DEV),
     }
+
+
+def phase_sharded(corpus: np.ndarray, big: dict, exact: list[bytes],
+                  fast: list[bytes], want: dict) -> dict:
+    """``parallel`` over processes on the one card: two ranks over gloo,
+    each launching its kernels on ``cuda:0`` (NCCL puts no two ranks on
+    one device), then NCCL at a world of one; the same calls in both.  The
+    kernels and ``native/`` were built before the spawn.  A rank that
+    fails fails the run.  ``want``: :func:`sharded_want`."""
     runs = [("gloo", 2, "cpu" if REHEARSE else "cuda:0"),
             ("gloo" if REHEARSE else "nccl", 1,
              "cpu" if REHEARSE else "cuda:0")]
@@ -2060,23 +2111,8 @@ def phase_sharded(corpus: np.ndarray, big: dict, exact: list[bytes]) -> dict:
             if (r["size"], r["backend"]) != (world, backend):
                 fail(f"sharded[{label}]: a mesh of {r['size']} over "
                      f"{r['backend']}")
-            for key in ("tiled_host", "tiled_device"):
-                if r[key] != want["tiled"]:
-                    fail(f"sharded[{label}]: {key} differs from the oracle")
-            for key in ("sharded_exact", "sharded_fast"):
-                if r[key] != want[key]:
-                    fail(f"sharded[{label}]: {key} differs from "
-                         "compress_batch's bytes")
-            if not np.array_equal(r["decoded"], want["decoded"]):
-                fail(f"sharded[{label}]: decompress_batch_sharded differs "
-                     "from decompress_batch")
-            got = r["counts"]
-            if not REHEARSE:
-                for k in ("exact_transform", "encode2_zz", "encode2_pixels",
-                          "place", "entropy_decode"):
-                    if got[k] < 1:
-                        fail(f"sharded[{label}]: {k} was not launched")
-            per_path[label] = got
+            check_sharded_rank("sharded", label, r, want, exact, fast)
+            per_path[label] = r["counts"]
             report.append({"ranks": label, "device": r["device"],
                            "rank_seconds": round(r["seconds"], 2)})
         report.append({"ranks": f"{backend} x{world}",
@@ -2086,7 +2122,9 @@ def phase_sharded(corpus: np.ndarray, big: dict, exact: list[bytes]) -> dict:
          f"{big['image'].shape[0]} image (host and device) == the oracle's "
          "stream without its trailer; compress_batch_sharded of the corpus "
          "== compress_batch's bytes (exact, fast, no trailer); "
-         "decompress_batch_sharded == decompress_batch",
+         "compress_batch with the index == the corpus streams (both "
+         "sha256); decompress_batch_sharded == decompress_batch; every "
+         "kernel launched, on card 0",
          unverified="NCCL at a world above one: NCCL puts no two ranks on "
          "one device, and this script runs on one card; "
          "scripts/torch_multicard.py checks NCCL at worlds 2 and 4, one "
@@ -2211,6 +2249,50 @@ def phase_local_mesh(corpus: np.ndarray, big: dict, exact: list[bytes],
          launches_by_path=per_path, launches_by_card=by_card,
          seconds=seconds, shard_times=shards, refusal=refusal,
          refusal_seconds=round(refusal_s, 3))
+    return per_path
+
+
+def phase_group_mesh(corpus: np.ndarray, big: dict, exact: list[bytes],
+                     fast: list[bytes], want: dict) -> dict:
+    """A local mesh in each process of a group (JAX's mesh over every
+    process's devices): two gloo ranks of two shards each, all four on
+    ``cuda:0`` (NCCL puts no two ranks on one card; four cards are
+    ``scripts/torch_multicard.py``'s ``group_local``), the calls and bars
+    of phase ``sharded``.  ``want``: :func:`sharded_want`."""
+    device = "cpu" if REHEARSE else "cuda:0"
+    t0 = time.perf_counter()
+    results = spawn(sharded_rank, 2, backend="gloo", device=device,
+                    per_rank=2, args=(big["image"], corpus, exact))
+    secs = time.perf_counter() - t0
+    per_path: dict = {}
+    by_card: dict = {}
+    rows = []
+    for p, r in enumerate(results):
+        label = f"gloo x2 x2 process {p}"
+        if (r["size"], r["backend"]) != (4, "gloo") or [
+                s for s, _ in r["shards"]] != [r["rank"], r["rank"] + 1]:
+            fail(f"group_mesh[{label}]: shards {r['shards']} of a mesh of "
+                 f"{r['size']} over {r['backend']}")
+        check_sharded_rank("group_mesh", label, r, want, exact, fast)
+        per_path[label] = r["counts"]
+        by_card[label] = r["by_card"]
+        rows.append({"process": p, "shards": r["shards"],
+                     "rank_seconds": round(r["seconds"], 2),
+                     "shard_times": r["shard_times"]})
+    emit("group_mesh", ranks=rows, spawn_seconds=round(secs, 1),
+         launches_by_path=per_path, launches_by_card=by_card,
+         sha256_exact_streams=hashlib.sha256(
+             b"".join(results[0]["batch_exact"])).hexdigest(),
+         sha256_fast_streams=hashlib.sha256(
+             b"".join(results[0]["batch_fast"])).hexdigest(),
+         checked=f"every process of 2 gloo ranks x 2 shards on {device}: "
+         f"encode_tiled of the {big['image'].shape[1]}x"
+         f"{big['image'].shape[0]} image (host and device) == the oracle's "
+         "stream without its trailer; compress_batch_sharded of the corpus "
+         "== compress_batch's bytes (exact, fast, no trailer); "
+         "compress_batch with the index == the corpus streams (both "
+         "sha256); decompress_batch_sharded == decompress_batch; every "
+         "kernel launched, on card 0")
     return per_path
 
 
@@ -3010,15 +3092,20 @@ def main() -> None:
     big = phase_tiled()
     words_paths = phase_encode_to_words(corpus, exact_streams, fast_streams,
                                         big)
-    sharded_paths = phase_sharded(corpus, big, exact_streams)
+    want = sharded_want(corpus, big, exact_streams)
+    sharded_paths = phase_sharded(corpus, big, exact_streams, fast_streams,
+                                  want)
     local_paths = phase_local_mesh(corpus, big, exact_streams, fast_streams)
+    group_paths = phase_group_mesh(corpus, big, exact_streams, fast_streams,
+                                   want)
     stream_paths = phase_stream(corpus)
     phase_host_legs(corpus, exact_streams)
     conformance_paths = phase_conformance(corpus)
     bench_paths = phase_bench(corpus, exact_streams)
     # the later slices' paths count with the round trip's
     for paths in (auto_paths, big["per_path"], words_paths, sharded_paths,
-                  local_paths, stream_paths, conformance_paths, bench_paths):
+                  local_paths, group_paths, stream_paths, conformance_paths,
+                  bench_paths):
         for c in paths.values():
             for k in launched:
                 launched[k] += c[k]

@@ -57,7 +57,22 @@ spawned, then runs these phases, one JSON line each:
   1, 2 and 4 local cards (weak: 49 corpus images a card, exact and fast;
   strong: the 7680x4320 tiled encode, the decode of the 49 streams), each
   step's host CPU seconds and each shard's wall, thread CPU and
-  collective seconds, beside the NCCL rows of the same call.
+  collective seconds, beside the NCCL rows of the same call;
+- ``group_local`` (four cards): 2 NCCL processes of one group, 2 cards
+  each (``spawn(per_rank=2)``: process p's group on card 2p,
+  ``make_mesh(devices=[cuda:2p, cuda:2p+1])``, a mesh of 4 shards): every
+  check of ``nccl`` (each shard on its card; ``compress_stream`` on every
+  card at once), the 15360x8640 frame at two kernel calls a shard (exact
+  and fast == one card's ``compress``), a q=99 batch that only shard 3's
+  image leaves the tables (raised once a process, no thread left), every
+  card's launches of ``exact_transform``, ``encode2``, ``place`` and
+  ``entropy_decode``; then the ``scaling`` rows (weak exact and fast, 49
+  corpus images a card; strong: the 7680x4320 tiled encode, the decode of
+  the 49 streams) with PyTorch's default threads and again with
+  ``OMP_NUM_THREADS=16`` in each process, each beside this call's four
+  NCCL ranks and one process over four cards: step ms, efficiency
+  against one NCCL rank, each process's CPU seconds and each shard's
+  wall, thread CPU and collective seconds a step.
 
 Every check is recorded (``checks``: ``phase``, ``name``, ``passed``);
 a failed one does not stop the run, and the script exits 0 only if all
@@ -65,14 +80,14 @@ passed.  The last line is ``{"ok": true, ...}`` only then.
 
 ``--rehearse`` runs the same code on the CPU at a tiny size, with gloo
 ranks, CPU shards for the local meshes and the kernels' plain versions
-(a lowered ``pipeline.MAX_PIXELS`` gives ``two_cuts`` and ``local`` their
-two calls a rank or shard), to find faults before the cards are used; it
-ends with ``{"ok": false, "rehearsal": true}`` and
+(a lowered ``pipeline.MAX_PIXELS`` gives ``two_cuts``, ``local`` and
+``group_local`` their two calls a rank or shard), to find faults before
+the cards are used; it ends with ``{"ok": false, "rehearsal": true}`` and
 exits 1.
 
 Usage:
     python3 scripts/torch_multicard.py [--reps 20] [--out PATH]
-        [--phases per_card,nccl,two_cuts,failure,scaling,local]
+        [--phases per_card,nccl,two_cuts,failure,scaling,local,group_local]
     python3 scripts/torch_multicard.py --rehearse [--out PATH]
 """
 
@@ -123,7 +138,8 @@ FAST_SHA = "dcc29e818283cd09647bd85773969c24cd479dc0d5dba79b43b2469d78a47549"
 FAILURE_S = 60.0
 BASELINE_TARGET = ("BASELINE.json config 5: 0.8 scaling efficiency, the "
                    "JAX package's target on its own devices; no bar here")
-PHASES = ("per_card", "nccl", "two_cuts", "failure", "scaling", "local")
+PHASES = ("per_card", "nccl", "two_cuts", "failure", "scaling", "local",
+          "group_local")
 
 
 def sizes(rehearse: bool) -> dict:
@@ -295,9 +311,17 @@ def phase_per_card(rec: Record, sz: dict, devices: list, refs: dict) -> None:
 
 # ---------------------------------------------------------------- ranks
 
+def shard_sync(mesh) -> None:
+    """Every device of this process's shards."""
+    for _, d in mesh.shards():
+        sync(d)
+
+
 def nccl_rank(mesh, sz: dict, exact: list[bytes], two_cuts: bool) -> dict:
-    """One rank of phase ``nccl`` (and of ``two_cuts`` in the largest
-    world): sha256 of everything it computed, its card, its launches."""
+    """One process of phases ``nccl`` and ``group_local`` (and of
+    ``two_cuts`` in the largest world): sha256 of everything it computed,
+    its shards and cards, a q=99 batch that only the last shard's image
+    leaves the tables, its launches in all and by card."""
     on_card = mesh.device.type == "cuda"
     if not on_card:
         torch.set_num_threads(1)  # rehearsal: one core a rank
@@ -305,6 +329,7 @@ def nccl_rank(mesh, sz: dict, exact: list[bytes], two_cuts: bool) -> dict:
     corpus = synthetic_corpus(*sz["corpus"])
     big = seeded_image(*sz["big"], 8)
     out = {"rank": mesh.rank, "size": mesh.size, "device": str(mesh.device),
+           "shards": [[r, str(d)] for r, d in mesh.shards()],
            "comm_device": str(mesh.comm_device),
            "backend": torch.distributed.get_backend(mesh.group),
            "current_device": torch.cuda.current_device() if on_card else None,
@@ -318,31 +343,59 @@ def nccl_rank(mesh, sz: dict, exact: list[bytes], two_cuts: bool) -> dict:
     out["sharded_fast"] = sha(compress_batch_sharded(corpus, QUALITY,
                                                      mesh=mesh))
     out["decoded"] = sha([decompress_batch_sharded(exact, mesh=mesh)])
-    out["stream"] = sha(compress_stream(corpus, QUALITY, chunk=8,
-                                        device=mesh.device))
-    sync(mesh.device)
+
+    def stream_shard(shard):
+        """compress_stream on this shard's card, every card at once; every
+        shard's rank, current card and digest."""
+        digest = sha(compress_stream(corpus, QUALITY, chunk=8,
+                                     device=shard.device))
+        cur = torch.cuda.current_device() if on_card else -1
+        return shard.all_gather_bytes([f"{shard.rank} {cur} {digest}"
+                                       .encode()])
+
+    out["streams"] = [x.decode().split() for x in mesh.run(stream_shard)]
+    shard_sync(mesh)
     out["seconds"] = time.perf_counter() - t0
     out["launches"] = since(before)
+
+    battery = conformance.contents(sz["noise"], sz["noise"])
+    refused = np.stack([battery["stripes"]] * (mesh.size - 1)
+                       + [battery["noise"]])
+    threads = threading.active_count()
+    t0 = time.perf_counter()
+    try:
+        compress_batch_sharded(refused, 99, mesh=mesh, precision="exact")
+        out["refusal"] = None
+    except pipeline.TableRangeError as e:
+        out["refusal"] = str(e)
+    out["refusal_seconds"] = time.perf_counter() - t0
+    out["threads"] = [threads, threading.active_count()]
+
     if two_cuts:
         if sz["max_pixels"]:
             pipeline.MAX_PIXELS = sz["max_pixels"]
         huge = seeded_image(*sz["huge"], 16)
         nb = (huge.shape[0] // 8) * (huge.shape[1] // 8)
-        start, stop = tiled.block_range(nb, mesh.size, mesh.rank)
+        ranges = [tiled.block_range(nb, mesh.size, r) for r, _ in mesh.shards()]
         before = counts()
+        by_card = conformance.launch_counts_by_card()["encode2"]
         t0 = time.perf_counter()
         exact_huge = tiled.encode_tiled(huge, QUALITY, mesh=mesh)
         fast_huge = tiled.encode_tiled(huge, QUALITY, mesh=mesh,
                                        precision="fast")
-        sync(mesh.device)
+        shard_sync(mesh)
         out["two_cuts"] = {
-            "blocks": stop - start, "calls": len(tiled.sub_ranges(start,
-                                                                  stop)),
+            "blocks": [b - a for a, b in ranges],
+            "calls": [len(tiled.sub_ranges(a, b)) for a, b in ranges],
             "exact": sha([exact_huge]), "fast": sha([fast_huge]),
             "seconds": time.perf_counter() - t0, "launches": since(before),
+            "encode2_by_card": {
+                k: v - by_card.get(k, 0) for k, v in
+                conformance.launch_counts_by_card()["encode2"].items()},
             # rank 0 hands the stream back for the decode on one card
             "exact_stream": exact_huge if mesh.rank == 0 else None,
         }
+    out["by_card"] = conformance.launch_counts_by_card()
     return out
 
 
@@ -352,62 +405,107 @@ def failure_rank(mesh, images: np.ndarray) -> list[bytes]:
 
 
 def _timed(fn, reps: int, mesh) -> dict:
-    """A warm step, then ``reps`` steps, each begun on every rank together
-    (an all-reduce first) and ended by a synchronise: host seconds and
-    the process's CPU seconds a step."""
+    """A warm step, then ``reps`` steps, each begun on every shard together
+    (an ``any`` first) and ended by a synchronise of this process's
+    devices: host seconds and the process's CPU seconds a step, and on a
+    local mesh each of its shards' wall, thread CPU and collective
+    seconds."""
     fn()
-    wall, cpu = [], []
+    wall, cpu, shards = [], [], []
     for _ in range(reps):
-        mesh.any(False)
-        sync(mesh.device)
+        mesh.run(lambda shard: shard.any(False))
+        shard_sync(mesh)
         t0, c0 = time.perf_counter(), time.process_time()
         fn()
-        sync(mesh.device)
+        shard_sync(mesh)
         wall.append(time.perf_counter() - t0)
         cpu.append(time.process_time() - c0)
-    return {"s": wall, "cpu_s": cpu}
+        if isinstance(mesh, LocalMesh):
+            shards.append(mesh.last_run)
+    return {"s": wall, "cpu_s": cpu, "shards": shards}
 
 
 def scaling_rank(mesh, sz: dict, exact: list[bytes], reps: int) -> dict:
-    """One rank of phase ``scaling``: its step times in every row."""
+    """One process of phases ``scaling`` and ``group_local``: its step
+    times in every row (a rank of one card also times its own encode and
+    decode with no collective beside them)."""
     if mesh.device.type == "cpu":
         torch.set_num_threads(1)
     corpus = synthetic_corpus(*sz["corpus"])
-    weak = np.concatenate([corpus] * mesh.size)  # this rank's group: corpus
+    weak = np.concatenate([corpus] * mesh.size)  # each shard's group: corpus
     big = seeded_image(*sz["big"], 8)
     dev = mesh.device
-    rows = {
-        "weak_exact": _timed(lambda: compress_batch_sharded(
-            weak, QUALITY, mesh=mesh, precision="exact"), reps, mesh),
-        "weak_fast": _timed(lambda: compress_batch_sharded(
-            weak, QUALITY, mesh=mesh), reps, mesh),
-        "local_exact": _timed(lambda: pipeline.compress_batch_device(
-            corpus, QUALITY, precision="exact", device=dev), reps, mesh),
-        "local_decode": _timed(lambda: Engine("exact", dev).decompress_batch(
-            exact), reps, mesh),
-        "strong_tiled_exact": _timed(lambda: tiled.encode_tiled(
-            big, QUALITY, mesh=mesh), reps, mesh),
-        "strong_decode": _timed(lambda: decompress_batch_sharded(
-            exact, mesh=mesh), reps, mesh),
+    fns = {
+        "weak_exact": lambda: compress_batch_sharded(
+            weak, QUALITY, mesh=mesh, precision="exact"),
+        "weak_fast": lambda: compress_batch_sharded(weak, QUALITY,
+                                                    mesh=mesh),
+        "local_exact": lambda: pipeline.compress_batch_device(
+            corpus, QUALITY, precision="exact", device=dev),
+        "local_decode": lambda: Engine("exact", dev).decompress_batch(exact),
+        "strong_tiled_exact": lambda: tiled.encode_tiled(big, QUALITY,
+                                                         mesh=mesh),
+        "strong_decode": lambda: decompress_batch_sharded(exact, mesh=mesh),
     }
+    if isinstance(mesh, LocalMesh):
+        del fns["local_exact"], fns["local_decode"]
     return {"rank": mesh.rank, "device": str(dev),
             "threads": torch.get_num_threads(),
             "omp_num_threads": os.environ.get("OMP_NUM_THREADS"),
-            "rows": rows}
+            "rows": {k: _timed(fn, reps, mesh) for k, fn in fns.items()}}
 
 
 # --------------------------------------------------------------- phases
 
 def spawn_checked(rec: Record, phase: str, label: str, fn, world: int,
-                  backend: str, device, args: tuple):
+                  backend: str, device, args: tuple, per_rank: int = 1):
     """``spawn``; a rank that fails is a failed check (with every failed
     rank's traceback) and gives ``None``."""
     try:
-        return spawn(fn, world, backend=backend, device=device, args=args)
+        return spawn(fn, world, backend=backend, device=device, args=args,
+                     per_rank=per_rank)
     except RankFailure as e:
         rec.check(phase, f"{label}: every rank ended", False,
                   errors={r: tb[-2000:] for r, tb in e.errors.items()})
         return None
+
+
+def process_checks(rec: Record, phase: str, label: str, r: dict,
+                   refs: dict, on_card: bool) -> None:
+    """The checks of one process's :func:`nccl_rank` result, whatever its
+    shards: bytes and pixels, the stream on every shard's card (shard k on
+    card k), the refusal, the kernels it launched."""
+    for key in ("tiled_host", "tiled_device"):
+        rec.check(phase, f"{label}: encode_tiled {key[6:]} == oracle",
+                  r[key] == refs["tiled"])
+    rec.check(phase, f"{label}: compress_batch_sharded exact == "
+              "compress_batch", r["sharded_exact"] == refs["sharded_exact"])
+    rec.check(phase, f"{label}: compress_batch_sharded fast == "
+              "compress_batch", r["sharded_fast"] == refs["sharded_fast"])
+    rec.check(phase, f"{label}: decompress_batch_sharded == "
+              "decompress_batch", r["decoded"] == refs["decoded"])
+    n = r["size"]
+    rec.check(phase, f"{label}: compress_stream on every shard's card == "
+              "the fast batch", [int(x[0]) for x in r["streams"]]
+              == list(range(n)) and all(x[2] == refs["stream"]
+                                        for x in r["streams"])
+              and (not on_card or [int(x[1]) for x in r["streams"]]
+                   == list(range(n))), streams=r["streams"])
+    last_here = n - 1 in [s for s, _ in r["shards"]]
+    rec.check(phase, f"{label}: a refusal on shard {n - 1} raised once, no "
+              f"thread left, in under {FAILURE_S:.0f} s",
+              r["refusal"] is not None
+              and conformance.TABLE_RANGE in r["refusal"]
+              and (last_here or "another rank" in r["refusal"])
+              and r["threads"][0] == r["threads"][1]
+              and r["refusal_seconds"] < FAILURE_S,
+              refusal=r["refusal"], threads=r["threads"])
+    if on_card:
+        got = r["launches"]
+        rec.check(phase, f"{label}: launched exact_transform, encode2, "
+                  "place, entropy_decode", all(got[k] >= 1 for k in (
+                      "exact_transform", "encode2_zz", "encode2_pixels",
+                      "place", "entropy_decode")), launches=got)
 
 
 def phase_nccl(rec: Record, sz: dict, worlds: list[int], run: dict,
@@ -437,27 +535,7 @@ def phase_nccl(rec: Record, sz: dict, worlds: list[int], run: dict,
             rl = f"{label} rank {r['rank']}"
             rec.check("nccl", f"{rl}: mesh of the world over {run['backend']}",
                       (r["size"], r["backend"]) == (world, run["backend"]))
-            for key in ("tiled_host", "tiled_device"):
-                rec.check("nccl", f"{rl}: encode_tiled {key[6:]} == oracle",
-                          r[key] == refs["tiled"])
-            rec.check("nccl", f"{rl}: compress_batch_sharded exact == "
-                      "compress_batch", r["sharded_exact"]
-                      == refs["sharded_exact"])
-            rec.check("nccl", f"{rl}: compress_batch_sharded fast == "
-                      "compress_batch", r["sharded_fast"]
-                      == refs["sharded_fast"])
-            rec.check("nccl", f"{rl}: decompress_batch_sharded == "
-                      "decompress_batch", r["decoded"] == refs["decoded"])
-            rec.check("nccl", f"{rl}: compress_stream on its card == the "
-                      "fast batch", r["stream"] == refs["stream"])
-            if run["on_card"]:
-                got = r["launches"]
-                rec.check("nccl", f"{rl}: launched exact_transform, encode2, "
-                          "place, entropy_decode", all(
-                              got[k] >= 1 for k in (
-                                  "exact_transform", "encode2_zz",
-                                  "encode2_pixels", "place",
-                                  "entropy_decode")), launches=got)
+            process_checks(rec, "nccl", rl, r, refs, run["on_card"])
             per_path[rl] = r["launches"]
             rows.append({"ranks": rl, "device": r["device"],
                          "current_device": r["current_device"],
@@ -471,7 +549,9 @@ def phase_nccl(rec: Record, sz: dict, worlds: list[int], run: dict,
                   "assembly) == the oracle's payload; compress_batch_sharded "
                   "exact and fast == compress_batch (no trailer); "
                   "decompress_batch_sharded == decompress_batch; "
-                  "compress_stream == the fast batch; kernels launched"))
+                  "compress_stream on every card at once == the fast batch; "
+                  "a q=99 batch that only the last rank's image leaves the "
+                  "tables raised on every rank; kernels launched"))
     return last
 
 
@@ -510,11 +590,11 @@ def phase_two_cuts(rec: Record, sz: dict, world: int, ranks, run: dict,
             rec.check("two_cuts", f"{rl}: {mode} == one card's compress",
                       tc[mode] == want[mode])
         rec.check("two_cuts", f"{rl}: two kernel calls a rank",
-                  tc["calls"] == 2
+                  tc["calls"] == [2]
                   and (not run["on_card"]
-                       or tc["launches"]["encode2_zz"] == 2 * tc["calls"]),
+                       or tc["encode2_by_card"] == {r["rank"]: 4}),
                   blocks=tc["blocks"], calls=tc["calls"],
-                  launches=tc["launches"] if run["on_card"] else None)
+                  encode2_by_card=tc["encode2_by_card"])
         rows.append({"rank": r["rank"], "blocks": tc["blocks"],
                      "calls": tc["calls"], "seconds": round(tc["seconds"], 2)})
     stream = ranks[0]["two_cuts"]["exact_stream"]
@@ -866,6 +946,153 @@ def phase_local(rec: Record, sz: dict, run: dict, refs: dict, reps: int,
                   "of as many ranks from this call's scaling phase"))
 
 
+# ------------------------------------------------- a local mesh a process
+
+GROUP_PROCS, GROUP_PER_RANK = 2, 2
+
+
+def group_scaling(rec: Record, sz: dict, run: dict, refs: dict, reps: int,
+                  card_lines: list[str], omp: str | None) -> dict | None:
+    """The scaling rows of 2 processes x 2 shards, with ``OMP_NUM_THREADS``
+    as this process has it (``omp`` ``None``) or set to ``omp`` in the
+    ranks; beside them the ``scaling`` (NCCL) and ``local`` rows of four
+    cards from this call, and the efficiency against this call's one
+    NCCL rank."""
+    saved = os.environ.get("OMP_NUM_THREADS")
+    if omp is not None:
+        os.environ["OMP_NUM_THREADS"] = omp
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn_checked(
+            rec, "group_local", f"scaling, OMP_NUM_THREADS={omp}",
+            scaling_rank, GROUP_PROCS, run["backend"], run["device"],
+            (sz, refs["exact"], reps), per_rank=GROUP_PER_RANK)
+        secs = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            os.environ.pop("OMP_NUM_THREADS", None)
+        else:
+            os.environ["OMP_NUM_THREADS"] = saved
+    if ranks is None:
+        return None
+    n = GROUP_PROCS * GROUP_PER_RANK
+    corpus_mp = sz["corpus"][0] * sz["corpus"][1] ** 2 / 1e6
+    total = {"weak_exact": n * corpus_mp, "weak_fast": n * corpus_mp,
+             "strong_tiled_exact": sz["big"][0] * sz["big"][1] / 1e6,
+             "strong_decode": corpus_mp}
+    phases = rec.data["phases"]
+    nccl = {r["procs"]: r for r in phases.get("scaling", {}).get("rows", [])}
+    local = {r["cards"]: r for r in phases.get("local", {}).get("scaling",
+                                                                [])}
+    row = {"procs": GROUP_PROCS, "shards_a_proc": GROUP_PER_RANK,
+           "backend": run["backend"],
+           "cards": card_lines[:n] if run["on_card"] else None,
+           "cores": os.cpu_count(), "steps": reps,
+           "spawn_and_join_s": secs, "threads": ranks[0]["threads"],
+           "omp_num_threads": ranks[0]["omp_num_threads"]}
+    for key, mp in total.items():
+        step = [max(r["rows"][key]["s"][i] for r in ranks)
+                for i in range(reps)]
+        base = {key: nccl[1][key]["mps"]} if 1 in nccl else {}
+        stats = step_stats(step, mp, n, base, key)
+        if 1 not in nccl:
+            stats["efficiency"] = None
+        shards = [s for r in ranks for s in zip(*r["rows"][key]["shards"])]
+        row[key] = {
+            **stats,
+            "process_cpu_s_median": [float(np.median(r["rows"][key]["cpu_s"]))
+                                     for r in ranks],
+            **{f"shard_{f}_median": [float(np.median([x[f] for x in s]))
+                                     for s in shards]
+               for f in ("s", "cpu_s", "collective_s")},
+            "nccl_x4": {k: nccl[4][key][k] for k in (
+                "step_s_median", "mps", "efficiency")}
+            if key in nccl.get(4, {}) else None,
+            "local_x4": {k: local[4][key][k] for k in (
+                "step_s_median", "mps", "efficiency", "cpu_s_median",
+                "shard_collective_s_median")}
+            if key in local.get(4, {}) else None,
+        }
+    print(json.dumps({"group scaling": f"OMP_NUM_THREADS={omp}", **{
+        k: [round(row[k]["mps"], 1), row[k]["efficiency"]]
+        for k in total}}), file=sys.stderr, flush=True)
+    return row
+
+
+def phase_group_local(rec: Record, sz: dict, run: dict, refs: dict,
+                      reps: int, card_lines: list[str]) -> None:
+    """2 processes of a group x 2 cards each (``spawn(per_rank=2)``: the
+    group on each process's first card, ``make_mesh(devices=[its two
+    cards])``); see the module docstring."""
+    on_card = run["on_card"]
+    n = GROUP_PROCS * GROUP_PER_RANK
+    label = f"{run['backend']} x{GROUP_PROCS} x{GROUP_PER_RANK}"
+    t0 = time.perf_counter()
+    ranks = spawn_checked(rec, "group_local", label, nccl_rank, GROUP_PROCS,
+                          run["backend"], run["device"],
+                          (sz, refs["exact"], True), per_rank=GROUP_PER_RANK)
+    spawn_s = time.perf_counter() - t0
+    rows, by_card = [], {}
+    if ranks is not None:
+        h, w = sz["huge"]
+        _, _, _, one_exact, one_fast, _ = one_card_huge(sz, refs["dev0"])
+        for p, r in enumerate(ranks):
+            pl = f"{label} process {p}"
+            mine = [GROUP_PER_RANK * p + j for j in range(GROUP_PER_RANK)]
+            rec.check("group_local", f"{pl}: shards {mine} of {n}",
+                      (r["size"], r["backend"]) == (n, run["backend"])
+                      and [s for s, _ in r["shards"]] == mine,
+                      shards=r["shards"])
+            if on_card:
+                rec.check("group_local", f"{pl}: cards {mine}, its group on "
+                          "the first", [d for _, d in r["shards"]]
+                          == [f"cuda:{k}" for k in mine]
+                          and r["current_device"] == mine[0]
+                          and r["comm_device"] == f"cuda:{mine[0]}",
+                          current_device=r["current_device"])
+            process_checks(rec, "group_local", pl, r, refs, on_card)
+            tc = r["two_cuts"]
+            rec.check("group_local", f"{pl}: the {w}x{h} frame, exact and "
+                      "fast == one card's compress, two calls a shard",
+                      tc["exact"] == sha([one_exact])
+                      and tc["fast"] == sha([one_fast])
+                      and tc["calls"] == [2] * GROUP_PER_RANK
+                      and (not on_card or tc["encode2_by_card"]
+                           == {k: 4 for k in mine}),
+                      calls=tc["calls"], encode2_by_card=tc["encode2_by_card"])
+            by_card[pl] = r["by_card"]
+            rows.append({"process": p, "shards": r["shards"],
+                         "seconds": round(r["seconds"], 2),
+                         "two_cuts_seconds": round(tc["seconds"], 3),
+                         "refusal_seconds": round(r["refusal_seconds"], 3)})
+        if on_card:
+            for k in ("exact_transform", "encode2", "place",
+                      "entropy_decode"):
+                cards = sorted(c for b in by_card.values() for c in b[k])
+                rec.check("group_local", f"every card launched {k}",
+                          cards == list(range(n)), by_card={
+                              pl: b[k] for pl, b in by_card.items()})
+    scaling = [group_scaling(rec, sz, run, refs, reps, card_lines, omp)
+               for omp in (None, "16")]
+    rec.check("group_local", "a scaling row with the default threads and "
+              "with OMP_NUM_THREADS=16", None not in scaling)
+    rec.phase("group_local", procs=GROUP_PROCS, shards_a_proc=GROUP_PER_RANK,
+              spawn_seconds=round(spawn_s, 1), processes=rows,
+              launches_by_card=by_card, scaling=scaling,
+              baseline_target=BASELINE_TARGET, note=(
+                  "2 processes of one group, 2 cards each, one thread a "
+                  "card; host clock around steps begun on every shard of "
+                  "both processes together, ended with the process's cards "
+                  "synchronised, a warm step first; a step is its slowest "
+                  "process; efficiency = MP/s / (4 * MP/s of one NCCL rank "
+                  "in this call's scaling phase); process_cpu_s: each "
+                  "process's CPU seconds a step; shard_*: each shard's "
+                  "wall, thread CPU and collective seconds inside the step "
+                  "(local shard 0's collective seconds include the group "
+                  "collective); nccl_x4, local_x4: this call's rows of four "
+                  "NCCL ranks and of one process over four cards"))
+
+
 # ----------------------------------------------------------------- main
 
 def main(argv: list[str] | None = None) -> int:
@@ -924,14 +1151,14 @@ def main(argv: list[str] | None = None) -> int:
     exact = api.compress_batch(corpus, QUALITY, precision="exact",
                                device=dev0)
     refs = {
-        "corpus": corpus, "exact": exact,
+        "corpus": corpus, "exact": exact, "dev0": dev0,
         "oracle_sha": sha(container.compress(im, QUALITY, block_index=True)
                           for im in corpus) if rehearse else EXACT_SHA,
         "oracle_pixels": np.stack([container.decompress(s) for s in exact]),
         "auto": container.compress(corpus[0], QUALITY, True,
                                    block_index=True),
     }
-    if {"nccl", "two_cuts", "local"} & set(phases):
+    if {"nccl", "two_cuts", "local", "group_local"} & set(phases):
         big = seeded_image(*sz["big"], 8)
         oracle_big = container.compress(big, QUALITY)
         refs.update(
@@ -962,11 +1189,17 @@ def main(argv: list[str] | None = None) -> int:
     if "scaling" in phases:
         phase_scaling(rec, sz, [1, *worlds], run, refs, reps,
                       info["cards"])
+    # a rehearsal's CPU shards decode through the plain decoder, many
+    # small torch operations a shard taking turns at the GIL: one step
+    shard_reps = 1 if rehearse else reps
     if "local" in phases:
-        # a rehearsal's CPU shards decode through the plain decoder, many
-        # small torch operations a shard taking turns at the GIL: one step
-        phase_local(rec, sz, run, refs, 1 if rehearse else reps,
-                    info["cards"], dev0)
+        phase_local(rec, sz, run, refs, shard_reps, info["cards"], dev0)
+    if "group_local" in phases:
+        if rehearse or count >= GROUP_PROCS * GROUP_PER_RANK:
+            phase_group_local(rec, sz, run, refs, shard_reps, info["cards"])
+        else:
+            rec.check("group_local", "four cards for 2 processes x 2 cards",
+                      False, cards=count)
 
     rec.data["phases_run"] = phases
     rec.data["seconds"] = round(time.perf_counter() - rec.t0, 1)

@@ -851,6 +851,45 @@ def test_make_mesh_spans_every_card(two_cards):
     assert torch.cuda.current_device() == 0
 
 
+def _group_mesh_on_cards(device, backend: str, cards: list[list[int]]):
+    """2 processes x 2 shards (``spawn(per_rank=2)``) against one card's
+    public ``compress_batch`` and ``decompress_batch`` and the oracle;
+    process p's launches on ``cards[p]`` alone."""
+    from tinyimgcodec_tpu_torch.parallel import spawn
+    from test_torch_group_mesh import card_rank
+
+    img = synthetic_image(100, 123, seed=76)
+    imgs = np.stack([synthetic_image(40, 48, seed=s) for s in range(7)])
+    exact = compress_batch(imgs, 50, device="cuda:0")
+    fast = compress_batch(imgs, 50, precision="fast", device="cuda:0")
+    got = spawn(card_rank, 2, backend=backend, device=device, per_rank=2,
+                args=(img, imgs))
+    for p, r in enumerate(got):
+        assert [s for s, _ in r["shards"]] == [2 * p, 2 * p + 1]
+        assert r["tiled"] == container.compress(img, 50)
+        assert r["batch"] == exact == [container.compress(
+            im, 50, block_index=True) for im in imgs]
+        assert r["fast"] == fast
+        assert np.array_equal(r["decoded"], decompress_batch(exact,
+                                                             device="cuda:0"))
+        for k in ("exact_transform", "encode2", "place", "entropy_decode"):
+            assert sorted(r["by_card"][k]) == cards[p], (k, r["by_card"])
+
+
+def test_a_group_of_two_processes_of_two_shards_on_one_card(cuda):
+    """Two gloo processes of two shards each, all on card 0 (NCCL puts no
+    two processes on one card): ``compress_batch``'s bytes and pixels."""
+    _group_mesh_on_cards("cuda:0", "gloo", [[0], [0]])
+
+
+def test_a_group_of_two_processes_of_two_cards_on_every_card(cuda):
+    """Two NCCL processes of two cards each, cards 0-1 and 2-3: the same
+    bytes and pixels, each card launching every kernel."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    _group_mesh_on_cards(None, "nccl", [[0, 1], [2, 3]])
+
+
 @pytest.fixture
 def two_cards(cuda):
     """Cards 0 and 1, card 0 current (decided here, not at import)."""

@@ -7,8 +7,8 @@ A mesh of n CPU shards (``make_mesh(devices=["cpu"] * n)``) is the port's
 counterpart of the JAX tests' n virtual host devices.  The JAX results are
 computed once for the module, at one shape each.  Exact mode has a
 bit-exact bar everywhere; fast mode's bar is the world of one's bytes.
-The module imports no JAX at its top: the rank of the gloo test starts
-from a fresh import of it.
+A local mesh in each process of a group is
+``tests/test_torch_group_mesh.py``'s.
 """
 
 import os
@@ -26,7 +26,7 @@ from tinyimgcodec_tpu_torch import (
 from tinyimgcodec_tpu_torch.corpus import seeded_image, synthetic_corpus
 from tinyimgcodec_tpu_torch.jobs import CorpusEncodeJob
 from tinyimgcodec_tpu_torch.parallel import (
-    LocalMesh, Mesh, make_mesh, spawn, tiled,
+    LocalMesh, Mesh, make_mesh, tiled,
 )
 from tinyimgcodec_tpu_torch.parallel.batch import (
     compress_batch, compress_batch_sharded, decompress_batch_sharded,
@@ -366,25 +366,3 @@ def test_make_mesh_with_explicit_devices():
             make_mesh()
         with pytest.raises(RuntimeError, match="CUDA"):
             make_mesh(devices=["cuda:0", "cuda:0"])
-
-
-def _group_rank(mesh):
-    """A rank of a gloo group of two: its mesh, and what a request for a
-    mesh of several devices in this process gives."""
-    out = {"size": mesh.size, "group": mesh.group is not None,
-           "again": make_mesh(device=CPU).size}
-    try:
-        make_mesh(devices=[CPU, CPU])
-        out["error"] = None
-    except ValueError as e:
-        out["error"] = str(e)
-    return out
-
-
-def test_a_group_refuses_a_mesh_of_several_devices_a_process():
-    """Inside a process group a mesh is one device a rank; several
-    devices in each process (JAX's multi-host mesh) raise."""
-    got = spawn(_group_rank, 2, backend="gloo", device=CPU)
-    for r in got:
-        assert (r["size"], r["group"], r["again"]) == (2, True, 2)
-        assert "multi-host" in r["error"]

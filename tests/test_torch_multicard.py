@@ -11,7 +11,9 @@ the four-card script's control flow at a tiny size.
 import datetime
 import inspect
 import json
+import os
 import pathlib
+import resource
 import subprocess
 import sys
 
@@ -24,7 +26,7 @@ from tinyimgcodec_tpu_torch.corpus import seeded_image
 from tinyimgcodec_tpu_torch.device import resolve_device
 from tinyimgcodec_tpu_torch.parallel import mesh as pmesh
 from tinyimgcodec_tpu_torch.parallel import (
-    init_distributed, rank_card, spawn, tiled,
+    RankFailure, init_distributed, rank_card, spawn, tiled,
 )
 from tinyimgcodec_tpu_torch.parallel.batch import compress_batch_sharded
 from tinyimgcodec_tpu_torch.tables import CodecTables, DecodeTables
@@ -120,24 +122,76 @@ def _boom(mesh):
 
 
 def test_spawn_passes_a_group_timeout(monkeypatch, tmp_path):
-    """``spawn``'s ranks join their group with its ``timeout`` (120 s
-    unless given); a rank that raises leaves its traceback beside the
-    results."""
+    """``spawn``'s ranks join their group through the parent's store with
+    its ``timeout`` (120 s unless given); a rank writes its result before
+    the group's teardown, after a barrier; a rank that raises leaves its
+    traceback beside the results."""
     default = inspect.signature(spawn).parameters["timeout"].default
     assert default == datetime.timedelta(seconds=120)
     seen = []
+    monkeypatch.setattr(pmesh.dist, "TCPStore", lambda host, port, **kw: (
+        "store", host, port, kw["is_master"], kw["timeout"]))
     monkeypatch.setattr(pmesh.dist, "init_process_group",
-                        lambda backend, **kw: seen.append(kw["timeout"]))
-    monkeypatch.setattr(pmesh.dist, "destroy_process_group", lambda: None)
+                        lambda backend, **kw: seen.append(kw))
+    monkeypatch.setattr(pmesh.dist, "barrier",
+                        lambda: seen.append((tmp_path / "0.pkl").exists()))
+    monkeypatch.setattr(pmesh.dist, "destroy_process_group",
+                        lambda: seen.append("destroyed"))
     limit = datetime.timedelta(seconds=7)
-    pmesh._rank_main(0, _echo, 1, "gloo", "cpu", 1, str(tmp_path), (5,),
-                     limit)
-    assert seen == [limit]
+    pmesh._rank_main(0, _echo, 1, "gloo", "cpu", 1, 1234, str(tmp_path),
+                     (5,), limit)
+    assert seen[0]["timeout"] == limit
+    assert seen[0]["store"] == ("store", "127.0.0.1", 1234, False, limit)
+    assert seen[1:] == [True, "destroyed"]
     assert (tmp_path / "0.pkl").exists()
     with pytest.raises(ValueError, match="boom"):
-        pmesh._rank_main(1, _boom, 1, "gloo", "cpu", 1, str(tmp_path), (),
-                         limit)
+        pmesh._rank_main(1, _boom, 1, "gloo", "cpu", 1, 1234, str(tmp_path),
+                         (), limit)
     assert "ValueError: boom" in (tmp_path / "1.err").read_text()
+
+
+def _abort_in_teardown(mesh):
+    """Rank 1 dies by SIGABRT in its group's teardown, after its result is
+    written (no core file)."""
+    if mesh.rank == 1:
+        resource.setrlimit(resource.RLIMIT_CORE, (0, 0))
+        torch.distributed.destroy_process_group = os.abort
+    return mesh.rank
+
+
+def test_a_rank_that_dies_after_writing_its_result_is_named(monkeypatch):
+    """``spawn`` names the rank, its signal and exit code, and that it had
+    written its result; it does not fold the death into ``{-1: ...}``."""
+    with pytest.raises(RankFailure) as err:
+        spawn(_abort_in_teardown, 2, backend="gloo", device="cpu")
+    assert list(err.value.errors) == [1]
+    assert err.value.errors[1] == ("wrote its result, then ended by signal "
+                                   "SIGABRT (exit code -6)")
+
+
+def _store_port(mesh):
+    from torch.distributed import distributed_c10d
+    return distributed_c10d._get_default_store().underlying_store.port
+
+
+def test_the_ranks_meet_at_the_parents_store(monkeypatch):
+    """The parent binds the store's port (port 0: the system's choice)
+    before any rank starts and holds it until every rank has ended; no
+    port is chosen and released first."""
+    made = []
+    real = pmesh.dist.TCPStore
+
+    def store(*a, **kw):
+        made.append((a, kw))
+        made.append(real(*a, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(pmesh.dist, "TCPStore", store)
+    ports = spawn(_store_port, 2, backend="gloo", device="cpu")
+    assert not hasattr(pmesh, "_free_port")
+    (args, kw), parent = made
+    assert args == ("127.0.0.1", 0) and kw["is_master"] is True
+    assert ports == [parent.port] * 2
 
 
 def _rank_work(mesh):
@@ -221,10 +275,20 @@ def test_multicard_script_rehearses_on_the_cpu(tmp_path):
     assert rec["rehearsal"] and rec["all_passed"], [
         c for c in rec["checks"] if not c["passed"]]
     assert list(rec["phases"]) == ["cards", "per_card", "nccl", "two_cuts",
-                                   "failure", "scaling", "local"]
+                                   "failure", "scaling", "local",
+                                   "group_local"]
     assert [r["procs"] for r in rec["phases"]["scaling"]["rows"]] == [1, 2, 4]
     assert rec["phases"]["failure"]["ranks_raised"] == [0, 1, 2, 3]
     local = rec["phases"]["local"]
     assert [r["cards"] for r in local["scaling"]] == [1, 2, 4]
     assert local["scaling"][2]["devices"] == ["cpu"] * 4
     assert sum(c["phase"] == "local" for c in rec["checks"]) >= 10
+    group = rec["phases"]["group_local"]
+    assert [p["shards"] for p in group["processes"]] == [
+        [[0, "cpu"], [1, "cpu"]], [[2, "cpu"], [3, "cpu"]]]
+    assert [r["omp_num_threads"] for r in group["scaling"]][1] == "16"
+    assert all(len(r["strong_tiled_exact"]["shard_collective_s_median"]) == 4
+               and r["weak_exact"]["local_x4"] is not None
+               and r["weak_exact"]["nccl_x4"] is not None
+               for r in group["scaling"])
+    assert sum(c["phase"] == "group_local" for c in rec["checks"]) >= 17

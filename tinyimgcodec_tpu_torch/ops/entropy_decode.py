@@ -185,6 +185,11 @@ def prepare_batch(streams: list[bytes]):
         if idx is None:
             return None
         off, stride, pay_end = idx
+        if len(off) == 1 and stride > 1 << 31:
+            # one chunk holds the whole image, whatever the stride; one
+            # past int32 (a corrupt byte may say 2**255, which no int64
+            # holds) is taken as the image's block count
+            stride = nb
         if flag & FLAG_CUSTOM_TABLE:
             try:
                 reader = BitReader(data)

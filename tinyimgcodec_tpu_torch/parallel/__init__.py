@@ -5,9 +5,11 @@ The counterpart of the JAX package's ``parallel`` package:
 
 - :mod:`.mesh` -- a 1-D mesh over every card of this process (one thread
   a card, the default of ``make_mesh()`` outside a process group, as
-  JAX's mesh over ``jax.devices()``) or over the ranks of a
+  JAX's mesh over ``jax.devices()``), over the ranks of a
   ``torch.distributed`` process group (NCCL on the card, gloo on the
-  CPU); ``init_distributed`` and ``spawn``.
+  CPU), or over several cards in each process of a group
+  (``make_mesh(devices=[...])`` inside it, JAX's multi-host mesh);
+  ``init_distributed`` and ``spawn``.
 - :mod:`.tiled` -- one image's blocks split into contiguous ranges over
   the shards and, within a shard, into calls of at most
   ``pipeline.MAX_PIXELS`` pixels, with the DC predictor carried across
@@ -20,5 +22,5 @@ The counterpart of the JAX package's ``parallel`` package:
 
 from .mesh import (  # noqa: F401
     LocalMesh, Mesh, RankFailure, init_distributed, make_mesh, rank_card,
-    spawn,
+    rank_devices, spawn,
 )

@@ -8,8 +8,9 @@ same shapes), each shard runs the port's pipeline on its group on its own
 device -- ``exact_transform`` (exact), ``encode2`` and ``place``, with the
 float64 recompute of its own flagged blocks, or the decode kernel -- and
 the results are all-gathered in the caller's order, the padding dropped.
-A shard is a card of this process (the default mesh: every visible card)
-or a rank of a process group (``parallel.mesh``).
+A shard is a card of this process (the default mesh: every visible card),
+a rank of a process group, or one of several cards in each process of a
+group (``parallel.mesh``).
 
 Exact mode gives the float64 oracle's bytes whatever the world size.  Not
 carried over from the JAX package: its XLA batch programs
@@ -40,10 +41,10 @@ def _group(b: int, size: int, rank: int) -> list[int]:
 def stage_images(images: np.ndarray, mesh: Mesh | None = None):
     """The images of this process's shards, reflect-padded to block
     multiples, each group as a (per, H8, W8) uint8 tensor on its shard's
-    device -- one tensor, or a tuple of them, one a shard of a local mesh
-    -- and the batch's size: the ``staged`` argument of
-    :func:`compress_batch` (which then skips the host-to-device
-    transfer)."""
+    device -- one tensor, or a tuple of them, one a shard of this process
+    in a local mesh, in local order -- and the batch's size: the
+    ``staged`` argument of :func:`compress_batch` (which then skips the
+    host-to-device transfer)."""
     if mesh is None:
         mesh = make_mesh()
     images = np.asarray(images)
@@ -64,7 +65,7 @@ def _encode_groups(mesh, images, quality, precision, bits_per_pixel_budget,
         staged = stage_images(images, mesh)
     local, b = staged
     if isinstance(local, tuple):  # one tensor a shard of a local mesh
-        local = local[mesh.rank]
+        local = local[mesh.local_rank]
     true_shape = (tuple(np.shape(images)[1:3]) if images is not None
                   else tuple(local.shape[1:]))
     refused = None

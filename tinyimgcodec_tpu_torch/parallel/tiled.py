@@ -2,8 +2,9 @@
 
 The counterpart of the JAX package's ``parallel/tiled.py`` (BASELINE
 config 4: a 4K+ image tiled across devices).  A shard is a card of this
-process (the default mesh: every visible card) or a rank of a process
-group (``parallel.mesh``).  Design:
+process (the default mesh: every visible card), a rank of a process
+group, or one of several cards in each process of a group
+(``parallel.mesh``).  Design:
 
 - the image's 8x8 blocks, in raster order, are split into one contiguous
   range a shard (``ceil(nb / n)`` blocks each; when ``nb < n`` the
@@ -21,10 +22,11 @@ group (``parallel.mesh``).  Design:
 - segments are stitched at bit offsets, not byte offsets (the image
   starts once), computed in int64: ``assemble="host"`` pulls them to the
   host and concatenates them there; ``assemble="device"`` concatenates on
-  the card (shard 0's, in a local mesh).  Across shards, the lengths and
-  then the segments are all-gathered and concatenated in shard order, on
-  every rank of a process group (every rank returns the stream) and on
-  shard 0 of a local mesh (whose result is returned).  The concatenation
+  the card (local shard 0's, in a local mesh).  Across shards, the
+  lengths and then the segments are all-gathered and concatenated in
+  shard order, on every rank of a process group (every rank returns the
+  stream) and on local shard 0 of a local mesh, in each process of a
+  group (whose result is returned).  The concatenation
   is plain torch (one vectorised shift a segment), as the JAX package's
   was XLA.
 
