@@ -1,0 +1,8 @@
+"""Device time of the host-card copies of one encode call, summed over the
+cards, milliseconds."""
+
+from portbench.readers import copy_ms
+
+
+def read(record):
+    return copy_ms(record, "encode")
