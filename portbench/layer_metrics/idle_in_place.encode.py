@@ -1,0 +1,8 @@
+"""Share of the traced window in which a card idles while its host is in
+``codec.encode.place``, the mean over the cell's cards, percent."""
+
+from portbench.program_spans import idle_in
+
+
+def read(record):
+    return idle_in(record, "encode", "place")

@@ -16,7 +16,7 @@ from tinyimgcodec_tpu import container as jcontainer
 from tinyimgcodec_tpu_torch import container
 from tinyimgcodec_tpu_torch.jobs import CorpusEncodeJob
 from tinyimgcodec_tpu_torch.profiling import (
-    StageTimer, device_sync_cost, run_record, trace,
+    device_sync_cost, run_record, trace,
 )
 
 from conftest import synthetic_image
@@ -30,16 +30,6 @@ def _cli(tool: str, *args: str):
         capture_output=True, text=True, cwd=REPO, timeout=300,
         env=dict(os.environ, MPLBACKEND="Agg"),
     )
-
-
-def test_stage_timer():
-    t = StageTimer()
-    for _ in range(2):
-        with t.span("a"):
-            pass
-    s = t.summary()
-    assert s["a"]["count"] == 2
-    assert json.loads(t.json()) == s
 
 
 def test_run_record_names_the_device():

@@ -17,6 +17,11 @@ takes no such switch, as in the JAX package.  Decode takes TICX-indexed
 streams through the entropy decode kernel and everything else through the
 C host entropy decoder plus the device transform (``engine.py`` says which
 stream goes where).
+
+Each call is a ``codec.<entry>`` span of ``profiling.span`` (recorded
+while a torch profiler is on); the two decode calls' spans count the
+images each decode leg took (``kernel``, ``host_entropy``,
+``host_decoder``: ``Engine.decode_stats``).
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import container
+from . import container, profiling
 from .config import CodecConfig
 from .engine import Engine
 from .pipeline import compress_batch_device
@@ -69,18 +74,19 @@ def compress(
     image = np.asarray(image)
     if image.ndim != 2:
         raise ValueError("expected a 2-D grayscale image")
-    if backend == "host":
-        return container.compress(
-            image, config.quality, config.auto_huffman_table,
+    with profiling.span("codec.compress"):
+        if backend == "host":
+            return container.compress(
+                image, config.quality, config.auto_huffman_table,
+                block_index=config.block_index,
+                index_stride=config.index_stride,
+            )
+        return Engine(config.precision, device).compress(
+            image, config.quality,
+            auto_table=config.auto_huffman_table,
             block_index=config.block_index,
             index_stride=config.index_stride,
         )
-    return Engine(config.precision, device).compress(
-        image, config.quality,
-        auto_table=config.auto_huffman_table,
-        block_index=config.block_index,
-        index_stride=config.index_stride,
-    )
 
 
 def compress_batch(
@@ -106,21 +112,22 @@ def compress_batch(
         index_stride=index_stride,
     )
     _check_backend(backend)
-    if backend == "host":
-        if isinstance(images, torch.Tensor):
-            images = images.cpu().numpy()
-        return [
-            container.compress(
-                im, config.quality, block_index=config.block_index,
-                index_stride=config.index_stride,
-            )
-            for im in np.asarray(images)
-        ]
-    return compress_batch_device(
-        images, quality=config.quality, precision=config.precision,
-        block_index=config.block_index, index_stride=config.index_stride,
-        device=device,
-    )
+    with profiling.span("codec.compress_batch"):
+        if backend == "host":
+            if isinstance(images, torch.Tensor):
+                images = images.cpu().numpy()
+            return [
+                container.compress(
+                    im, config.quality, block_index=config.block_index,
+                    index_stride=config.index_stride,
+                )
+                for im in np.asarray(images)
+            ]
+        return compress_batch_device(
+            images, quality=config.quality, precision=config.precision,
+            block_index=config.block_index,
+            index_stride=config.index_stride, device=device,
+        )
 
 
 def decompress(data: bytes, backend: str = "auto",
@@ -132,9 +139,13 @@ def decompress(data: bytes, backend: str = "auto",
     inverse transform; a pixel may differ by one level).
     """
     _check_backend(backend)
-    if backend == "host":
-        return container.decompress(data)
-    return Engine(precision, device).decompress(data)
+    with profiling.span("codec.decompress") as call:
+        if backend == "host":
+            return container.decompress(data)
+        engine = Engine(precision, device)
+        out = engine.decompress(data)
+        call.set(**engine.decode_stats)
+        return out
 
 
 def decompress_batch(streams: list[bytes], backend: str = "auto",
@@ -150,9 +161,13 @@ def decompress_batch(streams: list[bytes], backend: str = "auto",
     list of (H, W) arrays comes back in input order.
     """
     _check_backend(backend)
-    if backend == "host":
-        out = [container.decompress(s) for s in streams]
-        if len({o.shape for o in out}) > 1:
-            return out
-        return np.stack(out)
-    return Engine(precision, device).decompress_batch(streams)
+    with profiling.span("codec.decompress_batch") as call:
+        if backend == "host":
+            out = [container.decompress(s) for s in streams]
+            if len({o.shape for o in out}) > 1:
+                return out
+            return np.stack(out)
+        engine = Engine(precision, device)
+        out = engine.decompress_batch(streams)
+        call.set(**engine.decode_stats)
+        return out

@@ -31,7 +31,8 @@ by what the device or the build did:
 A uniform batch of more than ``MAX_DECODE_BLOCKS`` blocks is decoded on
 the kernel leg in sub-batches cut at image boundaries.
 
-``decode_stats`` counts the images each leg took in the last call.
+``decode_stats`` counts the images each leg took in the last call.  Each
+decode stage is a ``codec.decode.*`` span of ``profiling.span``.
 
 ``encode_to_words`` gives an image's per-block code words and bit counts
 (the ``encode1`` kernel), from which a TICX trailer of any stride can be
@@ -46,7 +47,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from . import container, golden, native
+from . import container, golden, native, profiling
 from .bitstream import BitWriter, concat_bit_payload
 from .constants import FLAG_CUSTOM_TABLE, FLAG_SCALED_DCT, ZIGZAG_ORDER
 from .device import resolve_device
@@ -340,22 +341,26 @@ class Engine:
         -> (B, h, w) uint8 numpy; blocks flagged as sitting on a floor
         boundary are recomputed in float64 on the host."""
         b, nb, _ = zz.shape
-        zz_abs = transform.undo_dpcm(zz)
-        blocks, flags = transform.decode_blocks(
-            zz_abs, quality, self.precision, scaled_dct=scaled,
-            with_flags=True, tables=tables,
-        )
-        idx = torch.nonzero(flags.reshape(-1)).reshape(-1)  # host sync
-        if idx.numel():
-            rows = zz_abs.reshape(-1, 64)[idx].cpu().numpy()
-            fixed = _host_decode_blocks(rows, quality, scaled)
-            blocks = blocks.reshape(-1, 8, 8)
-            blocks[idx] = torch.from_numpy(fixed).to(blocks.device)
-            blocks = blocks.reshape(b, nb, 8, 8)
+        with profiling.span("codec.decode.transform"):
+            zz_abs = transform.undo_dpcm(zz)
+            blocks, flags = transform.decode_blocks(
+                zz_abs, quality, self.precision, scaled_dct=scaled,
+                with_flags=True, tables=tables,
+            )
+        with profiling.span("codec.decode.recompute") as stage:
+            idx = torch.nonzero(flags.reshape(-1)).reshape(-1)  # host sync
+            stage.set(flagged=idx.numel())
+            if idx.numel():
+                rows = zz_abs.reshape(-1, 64)[idx].cpu().numpy()
+                fixed = _host_decode_blocks(rows, quality, scaled)
+                blocks = blocks.reshape(-1, 8, 8)
+                blocks[idx] = torch.from_numpy(fixed).to(blocks.device)
+                blocks = blocks.reshape(b, nb, 8, 8)
         h8 = -(-h // 8) * 8
         w8 = -(-w // 8) * 8
-        imgs = transform.unblockify(blocks, h8, w8)[:, :h, :w]
-        return imgs.contiguous().cpu().numpy()
+        with profiling.span("codec.decode.pull"):
+            imgs = transform.unblockify(blocks, h8, w8)[:, :h, :w]
+            return imgs.contiguous().cpu().numpy()
 
     def _decompress_batch_device(self, streams: list[bytes]):
         """Uniform TICX streams -> (B, H, W) uint8 with the entropy stage
@@ -368,8 +373,9 @@ class Engine:
         per = MAX_DECODE_BLOCKS // (-(-h // 8) * -(-w // 8))
         if per < 1:
             return None
-        preps = [prepare_batch(streams[i:i + per])
-                 for i in range(0, len(streams), per)]
+        with profiling.span("codec.decode.prepare"):
+            preps = [prepare_batch(streams[i:i + per])
+                     for i in range(0, len(streams), per)]
         if any(p is None for p in preps):
             return None
         parts = [self._decode_prepared(prep, streams[k * per:(k + 1) * per])
@@ -383,34 +389,43 @@ class Engine:
         dev = self.device
         h, w, quality = prep["shape"]
         scaled = bool(prep["scaled_dct"])
-        tables = DecodeTables.build(quality, scaled, dev,
-                                    huffman=prep["tables"])
-        words = torch.from_numpy(prep["words"].view(np.int32)).to(dev)
-        chunks = [torch.from_numpy(prep[k]).to(dev) for k in _CHUNK_KEYS]
-        zz, ok = entropy_decode_chunks(
-            words, *chunks, prep["nb_total"], tables)
+        with profiling.span("codec.decode.upload"):
+            tables = DecodeTables.build(quality, scaled, dev,
+                                        huffman=prep["tables"])
+            words = torch.from_numpy(prep["words"].view(np.int32)).to(dev)
+            chunks = [torch.from_numpy(prep[k]).to(dev) for k in _CHUNK_KEYS]
+        with profiling.span("codec.decode.entropy"):
+            zz, ok = entropy_decode_chunks(
+                words, *chunks, prep["nb_total"], tables)
         imgs = self._pixels(
             zz.reshape(len(streams), prep["nb_per_image"], 64), h, w,
             quality, scaled, tables,
         )
         ok_np = ok.cpu().numpy()
         failed = np.unique(prep["chunk_img"][~ok_np])
-        for i in failed:
-            imgs[i] = container.decompress(streams[int(i)])
+        if len(failed):
+            with profiling.span("codec.decode.fallback", images=len(failed)):
+                for i in failed:
+                    imgs[i] = container.decompress(streams[int(i)])
         self.decode_stats["kernel"] += len(streams) - len(failed)
         self.decode_stats["host_decoder"] += len(failed)
         return imgs
 
-    def _decode_uniform_arrays(self, arrays: list[CodecArrays]) -> np.ndarray:
-        """Host-decoded coefficient arrays of equal shape and quality ->
-        (B, H, W) uint8: compacted on the host, uploaded narrow, widened
-        on the device, then one batched transform there."""
-        a0 = arrays[0]
+    def _upload_arrays(self, arrays: list[CodecArrays]) -> torch.Tensor:
+        """Host-decoded coefficient arrays of equal shape -> (B, nb, 64)
+        int32 on the device: compacted on the host, uploaded narrow,
+        widened there."""
         dev = self.device
         narrow = compact_coefficients(np.stack([a.dc for a in arrays]),
                                       np.stack([a.ac for a in arrays]))
-        zz = widen_coefficients(
+        return widen_coefficients(
             *(torch.from_numpy(x).to(dev) for x in narrow), dev)
+
+    def _arrays_pixels(self, arrays: list[CodecArrays],
+                       zz: torch.Tensor) -> np.ndarray:
+        """``arrays``' coefficients ``zz``, on the device -> (B, H, W)
+        uint8: one batched transform there."""
+        a0 = arrays[0]
         return self._pixels(zz, a0.height, a0.width, int(a0.quality),
                             bool(a0.scaled_dct))
 
@@ -435,9 +450,11 @@ class Engine:
             out = self._decompress_batch_device(streams)
             if out is not None:
                 return out
-        arrays = host_entropy_arrays(streams)
+        with profiling.span("codec.decode.host_entropy"):
+            arrays = host_entropy_arrays(streams)
+            zz = self._upload_arrays(arrays)
         self.decode_stats["host_entropy"] += len(streams)
-        return self._decode_uniform_arrays(arrays)
+        return self._arrays_pixels(arrays, zz)
 
     def decompress_batch(self, streams: list[bytes]):
         """Compressed streams -> decoded uint8 images: a stacked
@@ -453,4 +470,4 @@ class Engine:
     def decode_arrays(self, arrays: CodecArrays) -> np.ndarray:
         """Coefficient arrays (already entropy-decoded) -> image, with the
         transform on the device."""
-        return self._decode_uniform_arrays([arrays])[0]
+        return self._arrays_pixels([arrays], self._upload_arrays([arrays]))[0]

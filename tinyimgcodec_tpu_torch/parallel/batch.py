@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import container
+from .. import container, profiling
 from ..engine import Engine
 from ..ops import transform
 from ..ops.entropy_decode import prepare_batch
@@ -51,11 +51,12 @@ def stage_images(images: np.ndarray, mesh: Mesh | None = None):
     if images.ndim != 3 or images.shape[0] < 1:
         raise ValueError("expected a non-empty (B, H, W) batch")
     b = images.shape[0]
-    staged = tuple(
-        torch.from_numpy(np.ascontiguousarray(
-            transform.pad_to_blocks(images[_group(b, mesh.size, r)]),
-            dtype=np.uint8)).to(dev)
-        for r, dev in mesh.shards())
+    with profiling.span("codec.encode.upload"):
+        staged = tuple(
+            torch.from_numpy(np.ascontiguousarray(
+                transform.pad_to_blocks(images[_group(b, mesh.size, r)]),
+                dtype=np.uint8)).to(dev)
+            for r, dev in mesh.shards())
     return (staged if len(staged) > 1 else staged[0]), b
 
 
@@ -113,10 +114,12 @@ def compress_batch(
         raise ValueError(f"unknown assemble mode {assemble!r}")
     if block_index and assemble != "host":
         raise ValueError("block_index requires assemble='host'")
-    if mesh is None:
-        mesh = make_mesh(device=device)
-    return mesh.run(_encode_groups, images, quality, precision,
-                    bits_per_pixel_budget, staged, block_index, index_stride)
+    with profiling.span("codec.mesh.compress_batch"):
+        if mesh is None:
+            mesh = make_mesh(device=device)
+        return mesh.run(_encode_groups, images, quality, precision,
+                        bits_per_pixel_budget, staged, block_index,
+                        index_stride)
 
 
 def compress_batch_sharded(

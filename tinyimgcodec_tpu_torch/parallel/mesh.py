@@ -34,6 +34,7 @@ and ``all_gather_bytes``.  Three kinds of mesh carry that body:
 
 from __future__ import annotations
 
+import contextvars
 import datetime
 import os
 import pickle
@@ -47,6 +48,7 @@ import traceback
 import torch
 import torch.distributed as dist
 
+from .. import profiling
 from ..device import resolve_device
 from ..ops import _build
 
@@ -244,8 +246,10 @@ class LocalMesh(Mesh):
     ``torch.cuda.device`` of its card,
     and joins them all before it returns or raises; ``last_run`` then
     holds each shard's wall and thread CPU seconds and its seconds in
-    collectives.  The collectives exist only on the shard views that
-    :meth:`run` hands its body."""
+    collectives.  Each shard runs in a copy of the caller's context, so
+    its ``profiling`` spans carry the caller's call id, its rank and its
+    device, and record while the caller is profiled.  The collectives
+    exist only on the shard views that :meth:`run` hands its body."""
 
     def __init__(self, devices: list[torch.device], axis: str = "batch",
                  group=None):
@@ -273,11 +277,14 @@ class LocalMesh(Mesh):
         results: list = [None] * n
         errors: list = [None] * n
         times: list = [None] * n
+        traced = profiling.active()
+        contexts = [contextvars.copy_context() for _ in range(n)]
 
         def shard(r: int) -> None:
             dev = self.devices[r]
             view = Mesh(self.group, self.size, self.rank + r, dev, self.axis,
                         exchange)
+            profiling.enter_shard(self.rank + r, dev, traced)
             t0, c0 = time.perf_counter(), time.thread_time()
             try:
                 if dev.type == "cuda":
@@ -292,12 +299,13 @@ class LocalMesh(Mesh):
                         "s": time.perf_counter() - t0,
                         "cpu_s": time.thread_time() - c0}
 
-        threads = [threading.Thread(target=shard, args=(r,), daemon=True,
+        threads = [threading.Thread(target=contexts[r].run,
+                                    args=(shard, r), daemon=True,
                                     name=f"tic-mesh-shard-{r}")
                    for r in range(1, n)]
         for t in threads:
             t.start()
-        shard(0)
+        contexts[0].run(shard, 0)
         for t in threads:
             t.join()
         for r in range(n):

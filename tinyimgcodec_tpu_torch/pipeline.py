@@ -15,7 +15,7 @@ on an NVIDIA card.  Per batch:
 followed by one pull of the stream words, image starts, total and status,
 and per-image slicing at the byte-aligned image starts.  Exact-mode bytes
 equal ``container.compress(..., block_index=...)``, the float64 host
-oracle.
+oracle.  Each stage is a ``codec.encode.*`` span of ``profiling.span``.
 
 What is kept from the JAX pipeline, in behaviour: the capacity budget
 ``ceil(B*H*W*bits_per_pixel_budget / 32)`` words, status bit 2 (capacity)
@@ -31,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import container, golden
+from . import container, golden, profiling
 from .constants import ZIGZAG_ORDER
 from .device import resolve_device
 from .golden import CodecArrays
@@ -76,12 +76,15 @@ def exact_coefficients(blocks: torch.Tensor, quality: int,
     """(N, 64) uint8 blocks -> (64, N) int32 coefficients equal to the
     float64 oracle's: device transform, then the flagged blocks (roundings
     within 1e-9 of a tie) are recomputed on the host and patched in."""
-    zz, flags = exact_transform(blocks, tables)
-    idx = torch.nonzero(flags).reshape(-1)  # host sync: the count
-    if idx.numel():
-        pix = blocks[idx].cpu().numpy()
-        fixed = _host_zz64(pix, quality).astype(np.int32)
-        zz[:, idx] = torch.from_numpy(fixed.T.copy()).to(zz.device)
+    with profiling.span("codec.encode.transform"):
+        zz, flags = exact_transform(blocks, tables)
+    with profiling.span("codec.encode.recompute") as stage:
+        idx = torch.nonzero(flags).reshape(-1)  # host sync: the count
+        stage.set(flagged=idx.numel())
+        if idx.numel():
+            pix = blocks[idx].cpu().numpy()
+            fixed = _host_zz64(pix, quality).astype(np.int32)
+            zz[:, idx] = torch.from_numpy(fixed.T.copy()).to(zz.device)
     return zz
 
 
@@ -112,11 +115,13 @@ def _assemble(launch, overflow: torch.Tensor, n: int, cap_words: int):
         head = torch.stack([status, total.to(torch.int64)]).cpu()  # sync
         return stream, starts, int(head[1]), int(head[0])
 
-    stream, starts, total, status = run(max(cap_words, 1))
-    if status & 2 and not status & 4:
-        stream, starts, total, status = run(n * 52)
-        if status & 2:
-            raise ValueError("stream capacity overflow (worst case!)")
+    with profiling.span("codec.encode.place", retried=0) as stage:
+        stream, starts, total, status = run(max(cap_words, 1))
+        if status & 2 and not status & 4:
+            stage.set(retried=1)
+            stream, starts, total, status = run(n * 52)
+            if status & 2:
+                raise ValueError("stream capacity overflow (worst case!)")
     return stream[: -(-total // 32)], starts, total, bool(status & 4)
 
 
@@ -128,17 +133,22 @@ def stream_bytes(words: torch.Tensor, total: int) -> bytes:
     return raw.astype(">u4").tobytes()[: -(-total // 8)]
 
 
-def _pull_stream(launch, overflow: torch.Tensor, n: int, cap_words: int):
-    """:func:`_assemble`, then pull the result: (big-endian stream bytes
-    up to the total's last byte, image starts (B,) int64, total bits).
-    Raises ``ValueError`` when a coefficient lies outside the Huffman
-    tables."""
+def _assemble_checked(launch, overflow: torch.Tensor, n: int,
+                      cap_words: int):
+    """:func:`_assemble`, raising :class:`TableRangeError` when a
+    coefficient lies outside the Huffman tables: (stream words on the
+    device, image starts (B,) on the device, total bits)."""
     stream, starts, total, table_over = _assemble(launch, overflow, n,
                                                   cap_words)
     if table_over:
         raise TableRangeError()
-    return (stream_bytes(stream, total),
-            starts.cpu().numpy().astype(np.int64), total)
+    return stream, starts, total
+
+
+def _pull(stream: torch.Tensor, starts: torch.Tensor, total: int):
+    """The stream and its image starts to the host: (big-endian stream
+    bytes up to the total's last byte, image starts (B,) int64)."""
+    return stream_bytes(stream, total), starts.cpu().numpy().astype(np.int64)
 
 
 def _place_launch(packed: torch.Tensor, meta: torch.Tensor, nb: int):
@@ -159,10 +169,14 @@ def place_words(packed: torch.Tensor, meta: torch.Tensor,
 
 def place_stream(packed: torch.Tensor, meta: torch.Tensor,
                  overflow: torch.Tensor, nb: int, cap_words: int):
-    """``encode2``'s outputs -> the stream through ``place``, as
-    :func:`_pull_stream` returns it."""
-    return _pull_stream(_place_launch(packed, meta, nb), overflow,
-                        packed.shape[0], cap_words)
+    """``encode2``'s outputs -> the stream through ``place``, pulled:
+    (big-endian stream bytes up to the total's last byte, image starts
+    (B,) int64, total bits).  Raises ``TableRangeError`` when a
+    coefficient lies outside the Huffman tables."""
+    stream, starts, total = _assemble_checked(
+        _place_launch(packed, meta, nb), overflow, packed.shape[0],
+        cap_words)
+    return (*_pull(stream, starts, total), total)
 
 
 def split_streams(raw: bytes, starts: np.ndarray, true_shape: tuple[int, int],
@@ -292,23 +306,27 @@ def compress_batch_device(
 
     if isinstance(images, np.ndarray):
         images = torch.from_numpy(images)
-    tables = CodecTables.build(quality, dev)
-    blocks = transform.blockify(images.to(dev)).reshape(n, 64)
+    with profiling.span("codec.encode.upload"):
+        tables = CodecTables.build(quality, dev)
+        blocks = transform.blockify(images.to(dev)).reshape(n, 64)
     meta = None
     if precision == transform.EXACT:
         zz = exact_coefficients(blocks, quality, tables)
-        packed, meta, overflow = encode2(zz, tables, nb, from_zz=True)
-    elif version == "v2":
-        packed, meta, overflow = encode2(blocks, tables, nb)
-    else:
-        words, bits, overflow = encode1(blocks, tables, nb)
+    with profiling.span("codec.encode.entropy"):
+        if precision == transform.EXACT:
+            packed, meta, overflow = encode2(zz, tables, nb, from_zz=True)
+        elif version == "v2":
+            packed, meta, overflow = encode2(blocks, tables, nb)
+        else:
+            words, bits, overflow = encode1(blocks, tables, nb)
 
-    if meta is not None:
-        raw, starts, total = place_stream(packed, meta, overflow, nb,
-                                          cap_words)
-    else:
-        raw, starts, total = _pull_stream(
-            lambda cap: stitch(words, bits, nb, cap), overflow, n, cap_words)
-    off_all = meta[0].cpu().numpy().astype(np.int64) if block_index else None
-    return split_streams(raw, starts, (th, tw), quality, off_all,
-                         index_stride)
+    launch = (_place_launch(packed, meta, nb) if meta is not None
+              else lambda cap: stitch(words, bits, nb, cap))
+    stream, starts, total = _assemble_checked(launch, overflow, n, cap_words)
+    with profiling.span("codec.encode.pull"):
+        raw, starts = _pull(stream, starts, total)
+        off_all = (meta[0].cpu().numpy().astype(np.int64) if block_index
+                   else None)
+    with profiling.span("codec.encode.assemble"):
+        return split_streams(raw, starts, (th, tw), quality, off_all,
+                             index_stride)
