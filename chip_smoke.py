@@ -137,7 +137,9 @@ from tinyimgcodec_tpu_torch.conformance import (  # noqa: E402
 from tinyimgcodec_tpu_torch.corpus import (  # noqa: E402
     blocks_of_random_bits, seeded_image, synthetic_corpus,
 )
-from tinyimgcodec_tpu_torch.constants import HEADER_BYTES  # noqa: E402
+from tinyimgcodec_tpu_torch.constants import (  # noqa: E402
+    HEADER_BYTES, ZIGZAG_ORDER,
+)
 from tinyimgcodec_tpu_torch.device import card_info  # noqa: E402
 from tinyimgcodec_tpu_torch.engine import (  # noqa: E402
     KERNEL_BLOCK_BITS, Engine, _host_decode_blocks,
@@ -152,7 +154,7 @@ from tinyimgcodec_tpu_torch.parallel import (  # noqa: E402
     batch as pbatch, make_mesh, spawn, stream as pstream, tiled,
 )
 from tinyimgcodec_tpu_torch.pipeline import (  # noqa: E402
-    _host_zz64, compress_batch_device, exact_coefficients,
+    compress_batch_device, exact_coefficients,
 )
 from tinyimgcodec_tpu_torch.tables import (  # noqa: E402
     CodecTables, DecodeTables, dequant_multipliers, fast_decode_matrix,
@@ -336,35 +338,39 @@ def flag_limit(n: int) -> int:
     return n // 10000
 
 
+def oracle_zz(blocks: torch.Tensor, quality: int) -> np.ndarray:
+    """(N, 64) uint8 blocks -> (N, 64) int32 zig-zag coefficients of the
+    float64 oracle (``golden``: scipy's DCT, division, half to even)."""
+    x = blocks.cpu().numpy().reshape(-1, 8, 8).astype(np.float64) - 128.0
+    q = golden.quantize(golden.block_dct(x), quality)
+    return q.reshape(-1, 64)[:, ZIGZAG_ORDER].astype(np.int32)
+
+
 def exact_both(label: str, blocks: torch.Tensor, tables: CodecTables,
                quality: int) -> tuple:
     """The exact transform kernel against its plain version on the same
-    blocks.  The tensor cores sum in another order than the plain version,
-    so a coefficient may differ only inside blocks that one side flags,
-    the two may disagree on at most :func:`flag_limit` flags (a kernel
-    that flags too much fails here, not only in time), and the host
-    recompute must then settle both alike: the result must equal the
-    float64 oracle.  Returns (the kernel's coefficients with the flagged
-    blocks recomputed, counts)."""
-    zz_k, fl_k = exact_transform.exact_transform(blocks, tables)
-    zz_p, fl_p = exact_transform.exact_transform_plain(blocks, tables)
+    blocks: both settle the blocks they flag in the oracle's own
+    arithmetic, so their coefficients must equal the float64 oracle's in
+    every block, and the two may disagree on at most :func:`flag_limit`
+    flags (the tensor cores sum in another order; a kernel that flags too
+    much fails here, not only in time), with counts equal to their flags'.
+    Returns (the kernel's coefficients, counts)."""
+    zz_k, fl_k, n_k = exact_transform.exact_transform(blocks, tables)
+    zz_p, fl_p, n_p = exact_transform.exact_transform_plain(blocks, tables)
     sync()
     either = (fl_k != 0) | (fl_p != 0)
-    if int(((zz_k != zz_p).any(dim=0) & ~either).sum()):
-        fail(f"exact_transform[{label}]: unflagged coefficients differ")
     flag_diff = int((fl_k != fl_p).sum())
     if flag_diff > flag_limit(blocks.shape[0]):
         fail(f"exact_transform[{label}]: {flag_diff} flags differ from the "
              f"plain version's, more than {flag_limit(blocks.shape[0])}")
-    idx = torch.nonzero(either).reshape(-1)
-    fixed = _host_zz64(blocks[idx].cpu().numpy(), quality).astype(np.int32)
-    zz_fix = zz_k.clone()
-    zz_fix[:, idx] = torch.from_numpy(fixed.T.copy()).to(DEV)
-    gold = _host_zz64(blocks.cpu().numpy(), quality).astype(np.int32)
-    if not np.array_equal(zz_fix.T.cpu().numpy(), gold):
-        fail(f"exact_transform[{label}]: differs from the float64 oracle "
-             "after the flagged blocks are recomputed")
-    return zz_fix, {
+    if int(n_k) != int((fl_k != 0).sum()) or int(n_p) != int(
+            (fl_p != 0).sum()):
+        fail(f"exact_transform[{label}]: a count differs from its flags")
+    gold = oracle_zz(blocks, quality)
+    if not (np.array_equal(zz_k.T.cpu().numpy(), gold)
+            and np.array_equal(zz_p.T.cpu().numpy(), gold)):
+        fail(f"exact_transform[{label}]: differs from the float64 oracle")
+    return zz_k, {
         "coef_diff": int((zz_k != zz_p).sum()),
         "flag_diff": flag_diff,
         "flagged_either": int(either.sum()),
@@ -393,14 +399,13 @@ def phase_kernel_check(corpus: np.ndarray) -> dict:
         tables = CodecTables.build(quality, DEV)
         blocks = blocks_of(images)
         n = blocks.shape[0]
-        # -- exact_transform: unflagged coefficients equal, the oracle's
-        #    after the recompute ------------------------------------------
-        zz_fix, ex = exact_both(label, blocks, tables, quality)
+        # -- exact_transform: the oracle's coefficients in every block -----
+        zz_k, ex = exact_both(label, blocks, tables, quality)
         errs["exact_transform"] = max(errs["exact_transform"],
                                       ex["max_abs_err"])
         # -- encode2 from coefficients: rows, meta, overflow equal --------
-        pk, mk, ok_ = encode2.encode2(zz_fix, tables, nb, from_zz=True)
-        pp, mp, op = encode2.encode2_plain(zz_fix, tables, nb, from_zz=True)
+        pk, mk, ok_ = encode2.encode2(zz_k, tables, nb, from_zz=True)
+        pp, mp, op = encode2.encode2_plain(zz_k, tables, nb, from_zz=True)
         sync()
         errs["encode2"] = max(errs["encode2"],
                               max_abs_diff((pk, pp), (mk, mp)))
@@ -438,7 +443,7 @@ def phase_kernel_check(corpus: np.ndarray) -> dict:
                     and bool(sk[3]) == bool(sp[3])):
                 fail(f"place[{label}, cap={cap}]: kernel and plain differ")
         # -- encode1 from coefficients: words, bits, overflow equal -------
-        zz_bm = zz_fix.T.contiguous()  # block-major (N, 64)
+        zz_bm = zz_k.T.contiguous()  # block-major (N, 64)
         wk, bk, o1k = encode1.encode1(zz_bm, tables, nb, from_zz=True)
         wp, bp, o1p = encode1.encode1_plain(zz_bm, tables, nb, from_zz=True)
         sync()
@@ -1684,7 +1689,7 @@ def phase_auto_table(corpus: np.ndarray) -> tuple[dict, int, list]:
         if spec.extended:
             continue
         zz = exact_coefficients(blocks_of(img),
-                                quality, CodecTables.build(quality, DEV))
+                                CodecTables.build(quality, DEV))
         _, err = encode2_both(f"table of image {i} q{quality}", zz,
                               CodecTables.from_spec(spec, quality, DEV),
                               zz.shape[1])
@@ -1772,7 +1777,7 @@ def encode_stages(img: np.ndarray, reps: int) -> dict:
         return [tiled.range_blocks(img, a, b, DEV) for a, b in ranges]
 
     blocks = upload()
-    zz_list = [exact_coefficients(bl, 50, tables) for bl in blocks]
+    zz_list = [exact_coefficients(bl, tables) for bl in blocks]
     flagged = sum(int(exact_transform.exact_transform(bl, tables)[1].sum())
                   for bl in blocks)
     segments, offsets, _ = tiled.encode_ranges(zz_list, tables, None, 4.0,
@@ -1789,7 +1794,7 @@ def encode_stages(img: np.ndarray, reps: int) -> dict:
             exact_transform.exact_transform(bl, tables) for bl in blocks],
             reps),
         "exact_coefficients_ms": host_ms(lambda: [
-            exact_coefficients(bl, 50, tables) for bl in blocks], reps),
+            exact_coefficients(bl, tables) for bl in blocks], reps),
         "encode_ranges_ms": host_ms(lambda: tiled.encode_ranges(
             zz_list, tables, None, 4.0), reps),
         "encode_ranges_with_offsets_ms": host_ms(lambda: tiled.encode_ranges(
@@ -2614,7 +2619,7 @@ def phase_kernels(corpus: np.ndarray, launched: dict, errs: dict,
     n = blocks.shape[0]
     nb = n // corpus.shape[0]
     cap = -(-int(corpus.size * 4.0) // 32)
-    zz, _ = exact_transform.exact_transform(blocks, tables)
+    zz, _, _ = exact_transform.exact_transform(blocks, tables)
     packed, meta, _ = encode2.encode2(zz, tables, nb, from_zz=True)
     sync()
     owned = int((((meta[0] & 31) + meta[1] + 31) >> 5).sum())
@@ -2865,7 +2870,7 @@ def auto_table_breakdown(img: np.ndarray, stage) -> None:
     def coefficients():
         blocks = transform.blockify(torch.from_numpy(img[None].copy()).to(
             DEV)).reshape(nb, 64)
-        return exact_coefficients(blocks, quality, tables)
+        return exact_coefficients(blocks, tables)
 
     zz = coefficients()
     zz_np = zz.cpu().numpy()
@@ -3023,7 +3028,7 @@ def phase_timing(corpus: np.ndarray, streams: list[bytes],
     tables = CodecTables.build(50, DEV)
     nb = (corpus.shape[1] // 8) * (corpus.shape[2] // 8)
     blocks = transform.blockify(staged).reshape(-1, 64)
-    zz, flags = exact_transform.exact_transform(blocks, tables)
+    zz, flags, _ = exact_transform.exact_transform(blocks, tables)
     packed, meta, _ = encode2.encode2(zz, tables, nb, from_zz=True)
     cap = -(-int(corpus.size * 4.0) // 32)
     stream, _, total, _ = place.place(packed, meta, nb, cap)
@@ -3035,7 +3040,7 @@ def phase_timing(corpus: np.ndarray, streams: list[bytes],
         "exact_transform_ms": stage(
             lambda: exact_transform.exact_transform(blocks, tables)),
         "exact_coefficients_ms": stage(
-            lambda: exact_coefficients(blocks, 50, tables)),
+            lambda: exact_coefficients(blocks, tables)),
         "encode2_from_zz_ms": stage(
             lambda: encode2.encode2(zz, tables, nb, from_zz=True)),
         "encode2_pixels_ms": stage(

@@ -229,7 +229,7 @@ def main() -> None:
     blocks = transform.blockify(
         torch.from_numpy(corpus).to(DEV)).reshape(-1, 64).contiguous()
     nb = blocks.shape[0] // corpus.shape[0]
-    zz, _ = exact_transform.exact_transform(blocks, tables)
+    zz, _, _ = exact_transform.exact_transform(blocks, tables)
     split("encode2 from coefficients",
           lambda: encode2.encode2(zz, tables, nb, from_zz=True))
     split("encode2 from pixels", lambda: encode2.encode2(blocks, tables, nb))

@@ -272,10 +272,10 @@ def test_tables_from_a_spec_equal_those_of_the_jax_arrays(name):
     mine = CodecTables.from_spec(spec, 50)
     m, off = fast_encode_matrix(50)
     theirs = CodecTables.from_numpy(
-        m, off[0], dct_basis(), mine.recip_divisors.numpy(),
+        m, off[0], dct_basis(), mine.divisors.numpy(),
         *symbol_words(*_jax_spec(spec).device_tables()))
-    for field in ("encode_matrix", "dct_basis", "recip_divisors", "dc_comb",
-                  "ac_comb", "zrl_hi", "zrl_lo", "zigzag"):
+    for field in ("encode_matrix", "dct_basis", "recip_divisors", "divisors",
+                  "dc_comb", "ac_comb", "zrl_hi", "zrl_lo", "zigzag"):
         assert torch.equal(getattr(mine, field), getattr(theirs, field))
     assert mine.dc_offset == theirs.dc_offset
     hi = mine.zrl_hi.numpy().view(np.uint32)

@@ -13,9 +13,13 @@ import pytest
 import torch
 
 from tinyimgcodec_tpu_torch import (
-    compress_batch, container, decompress, decompress_batch,
+    compress_batch, container, decompress, decompress_batch, golden,
+    profiling,
 )
-from tinyimgcodec_tpu_torch.corpus import blocks_of_random_bits
+from tinyimgcodec_tpu_torch.constants import ZIGZAG_ORDER
+from tinyimgcodec_tpu_torch.corpus import (
+    blocks_of_random_bits, synthetic_corpus,
+)
 from tinyimgcodec_tpu_torch.engine import Engine
 from tinyimgcodec_tpu_torch.ops import (
     _build, encode1, encode2, entropy_decode, exact_transform, place, stitch,
@@ -44,26 +48,33 @@ def _blocks(imgs, dev):
     return transform.blockify(torch.from_numpy(imgs).to(dev)).reshape(-1, 64)
 
 
+def _oracle(blocks, quality):
+    """The float64 oracle's (N, 64) zig-zag coefficients of ``blocks``
+    (``golden``: scipy's DCT, division by the divisors, half to even)."""
+    x = blocks.cpu().numpy().reshape(-1, 8, 8).astype(np.float64) - 128.0
+    q = golden.quantize(golden.block_dct(x), quality)
+    return torch.from_numpy(q.reshape(-1, 64)[:, ZIGZAG_ORDER].copy())
+
+
 def _exact_both(blocks, t, quality):
     """The tensor-core transform against the plain version: coefficients
-    equal in every block neither flags, flags that differ in at most
-    0.01 % of the blocks (a product summed in another order moves a
-    quotient by about 1e-12, against the 1e-9 tie window), and equal to
-    the float64 oracle once the flagged blocks are recomputed.  Returns
-    the kernel's flags."""
-    zk, fk = exact_transform.exact_transform(blocks, t)
-    zp, fp = exact_transform.exact_transform_plain(blocks, t)
+    equal to the float64 oracle's on every block, flagged or not (each
+    side settles its flagged blocks in the oracle's arithmetic), flags
+    that differ in at most 0.01 % of the blocks (a product summed in
+    another order moves a quotient by about 1e-12, against the 1e-9 tie
+    window), and each count equal to its flags'.  Returns the kernel's
+    flags."""
+    zk, fk, nk = exact_transform.exact_transform(blocks, t)
+    zp, fp, np_ = exact_transform.exact_transform_plain(blocks, t)
     assert zk.shape == zp.shape and fk.shape == fp.shape
-    either = (fk != 0) | (fp != 0)
-    assert not bool(((zk != zp).any(dim=0) & ~either).any())
+    assert nk.shape == () and nk.dtype == torch.int64
+    assert int(nk) == int((fk != 0).sum())
+    assert int(np_) == int((fp != 0).sum())
     assert int((fk != fp).sum()) <= blocks.shape[0] // 10000
-    gold = exact_coefficients(blocks.cpu(), quality,
-                              CodecTables.build(quality, "cpu"))
-    idx = torch.nonzero(either).reshape(-1)
-    fixed = zk.clone()
-    fixed[:, idx] = gold.to(zk.device)[:, idx]
-    assert torch.equal(fixed.cpu(), gold)
-    assert torch.equal(exact_coefficients(blocks, quality, t).cpu(), gold)
+    gold = _oracle(blocks, quality)
+    assert torch.equal(zk.T.cpu(), gold)
+    assert torch.equal(zp.T.cpu(), gold)
+    assert torch.equal(exact_coefficients(blocks, t).T.cpu(), gold)
     return fk
 
 
@@ -79,7 +90,7 @@ def test_kernels_equal_plain_versions(cuda, quality, noise):
     nb = blocks.shape[0] // 3
     before = (exact_transform.launches, encode2.launches, place.launches)
     _exact_both(blocks, t, quality)
-    zz = exact_coefficients(blocks, quality, t)
+    zz = exact_coefficients(blocks, t)
     a = encode2.encode2(zz, t, nb, from_zz=True)
     b = encode2.encode2_plain(zz, t, nb, from_zz=True)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
@@ -112,7 +123,7 @@ def test_one_large_image_scans_many_chunks(cuda):
         0, 256, (1, 1024, 1024)).astype(np.uint8)
     t = CodecTables.build(90, cuda)
     blocks = _blocks(img, cuda)
-    zz = exact_coefficients(blocks, 90, t)
+    zz = exact_coefficients(blocks, t)
     a = encode2.encode2(zz, t, blocks.shape[0], from_zz=True)
     b = encode2.encode2_plain(zz, t, blocks.shape[0], from_zz=True)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
@@ -142,7 +153,7 @@ def test_encode1_and_stitch_equal_plain_versions(cuda, quality, noise):
     n = blocks.shape[0]
     nb = n // 3
     before = (encode1.launches, stitch.launches)
-    zz = exact_coefficients(blocks, quality, t).T.contiguous()  # (N, 64)
+    zz = exact_coefficients(blocks, t).T.contiguous()  # (N, 64)
     a = encode1.encode1(zz, t, nb, from_zz=True)
     b = encode1.encode1_plain(zz, t, nb, from_zz=True)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
@@ -263,7 +274,7 @@ def test_encode2_shapes_equal_plain_version(cuda, shape, quality):
     t = CodecTables.build(quality, cuda)
     blocks = _blocks(imgs, cuda).contiguous()
     nb = blocks.shape[0] // shape[0]
-    zz, _ = exact_transform.exact_transform(blocks, t)
+    zz, _, _ = exact_transform.exact_transform(blocks, t)
     first = _encode2_both(zz, t, nb)
     # one word off 16-byte alignment: the 4-byte copy path, same words
     buf = torch.empty(zz.numel() + 1, dtype=torch.int32, device=cuda)
@@ -445,7 +456,7 @@ def test_place_shapes_equal_plain_version(cuda, shape, quality):
     t = CodecTables.build(quality, cuda)
     blocks = _blocks(imgs, cuda).contiguous()
     nb = blocks.shape[0] // shape[0]
-    zz, _ = exact_transform.exact_transform(blocks, t)
+    zz, _, _ = exact_transform.exact_transform(blocks, t)
     packed, meta, _ = encode2.encode2(zz, t, nb, from_zz=True)
     _place_both(packed, meta, nb)
 
@@ -562,9 +573,62 @@ def test_exact_transform_shapes_equal_plain_version(cuda, shape, quality):
     assert torch.equal(_exact_both(shifted, t, quality), flags)
 
 
+@pytest.mark.parametrize("quality", [10, 50, 90])
+@pytest.mark.parametrize("content", ["corpus", "noise"])
+def test_exact_transform_equals_the_oracle_on_every_block(cuda, content,
+                                                         quality):
+    """The kernel's coefficients are the oracle's on every block, the
+    flagged ones settled on the card, and its count is the plain
+    version's; N = 49 * 1023 + 5 blocks is no multiple of the tile."""
+    if content == "corpus":
+        imgs = synthetic_corpus(49, 264)[:, :248]  # 31 x 33 blocks
+    else:
+        imgs = np.random.RandomState(quality).randint(
+            0, 256, (49, 248, 264)).astype(np.uint8)
+    blocks = _blocks(imgs, cuda)
+    tail = torch.full((5, 64), 129, dtype=torch.uint8, device=cuda)  # ties
+    blocks = torch.cat([blocks, tail]).contiguous()
+    assert blocks.shape[0] % 128
+    t = CodecTables.build(quality, cuda)
+    flags = _exact_both(blocks, t, quality)
+    _, _, plain = exact_transform.exact_transform_plain(blocks.cpu(),
+                                                        CodecTables.build(
+                                                            quality, "cpu"))
+    assert int(exact_transform.exact_transform(blocks, t)[2]) == int(plain)
+    assert int(plain) == int((flags != 0).sum()) > 0
+
+
+def test_exact_encode_on_the_card_syncs_once_and_counts_flagged(cuda):
+    """An exact ``compress_batch_device`` on the card opens no
+    ``aten::nonzero`` and no recompute stage; its transform span counts
+    the plain version's flagged blocks, read with the status."""
+    from torch.profiler import ProfilerActivity, profile
+
+    imgs = synthetic_corpus(6, 256)
+    imgs[0, :8, :8] = 101  # a flat odd block: a DC tie
+    want = [container.compress(im, 50, block_index=True) for im in imgs]
+    compress_batch_device(imgs, 50, precision="exact", block_index=True,
+                          device=cuda)  # built and warm
+    before = {r.span_id for r in profiling.spans()[0]}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = compress_batch_device(imgs, 50, precision="exact",
+                                    block_index=True, device=cuda)
+    assert out == want
+    names = {e.key for e in prof.key_averages()}
+    assert "aten::nonzero" not in names
+    recs = [r for r in profiling.spans()[0] if r.span_id not in before]
+    assert not any(r.name == "codec.encode.recompute" for r in recs)
+    (stage,) = [r for r in recs if r.name == "codec.encode.transform"]
+    blocks = transform.blockify(torch.from_numpy(imgs)).reshape(-1, 64)
+    _, _, plain = exact_transform.exact_transform_plain(
+        blocks, CodecTables.build(50, "cpu"))
+    assert stage.counts == {"flagged": int(plain)} and int(plain) > 0
+
+
 def test_exact_transform_leaves_noise_blocks_unflagged(cuda):
     # dense noise at q = 90: about 2 % of the blocks hold a tie; a kernel
-    # that flags more would pass every equality above after the recompute
+    # that flags more would pass every equality above all the same
     imgs = np.random.RandomState(41).randint(
         0, 256, (4, 256, 256)).astype(np.uint8)
     t = CodecTables.build(90, cuda)
@@ -723,7 +787,7 @@ def test_encode2_dc_init_equals_plain_version(cuda, form):
     blocks = _blocks(imgs, cuda).contiguous()
     nb = blocks.shape[0] // 3
     if form == "coefficients":
-        zz, _ = exact_transform.exact_transform(blocks, t)
+        zz, _, _ = exact_transform.exact_transform(blocks, t)
     else:
         zz = encode2.fast_coefficients(blocks, t)
     first = zz[0, ::nb].to(torch.int64)

@@ -201,7 +201,7 @@ def test_encode_to_words_exact_equals_jax(img, jax_engine):
 def test_encode_to_words_exact_with_flagged_blocks(jax_engine):
     img = _flagged_image()
     blocks = transform.blockify(torch.from_numpy(img)).reshape(-1, 64)
-    _, flags = exact_transform(blocks, CodecTables.build(50, "cpu"))
+    _, flags, _ = exact_transform(blocks, CodecTables.build(50, "cpu"))
     assert int(flags.sum()) > 0
     _assert_words_equal_jax(img, jax_engine)
 

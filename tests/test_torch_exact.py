@@ -1,8 +1,10 @@
 """Exact transform: the port's plain version vs the JAX package's
 double-float Pallas kernel in interpret mode, and vs the float64 oracle;
-and the CUDA kernel's tensor-core arithmetic (``csrc/exact_transform.cu``)
+the CUDA kernel's tensor-core arithmetic (``csrc/exact_transform.cu``)
 modelled lane by lane in numpy (:func:`dmma_model`), held against the
-plain version."""
+plain version; and the step both take on a tie-flagged block, scipy's DCT
+in scipy's own order (``oracle_dct8``), held to scipy bit for bit and
+modelled as the kernel's eight lanes a block run it."""
 
 import re
 from pathlib import Path
@@ -41,7 +43,7 @@ def case():
         with_flags=True,
     )
     tables = CodecTables.build(QUALITY, "cpu")
-    zz_t, fl_t = tex.exact_transform(torch.from_numpy(blocks), tables)
+    zz_t, fl_t, _ = tex.exact_transform(torch.from_numpy(blocks), tables)
     gold = jgolden.quantize(
         jgolden.block_dct(
             blocks.reshape(-1, 8, 8).astype(np.float64) - 128.0
@@ -74,15 +76,18 @@ def test_unflagged_blocks_equal_golden(case):
     assert np.array_equal(case["zz_t"][:, keep].T, case["gold"][keep])
 
 
+def test_flagged_blocks_equal_golden_too(case):
+    assert case["fl_t"].sum() >= N_TIE
+    assert np.array_equal(case["zz_t"].T, case["gold"])
+
+
 def test_exact_tie_blocks_are_flagged(case):
     assert case["fl_t"][-N_TIE:].all(), "DC ties must be flagged"
     assert case["fl_j"][-N_TIE:].all()
 
 
 def test_host_fixup_reaches_golden(case):
-    zz = exact_coefficients(
-        torch.from_numpy(case["blocks"]), QUALITY, case["tables"]
-    )
+    zz = exact_coefficients(torch.from_numpy(case["blocks"]), case["tables"])
     assert np.array_equal(zz.numpy().T, case["gold"])
 
 
@@ -92,7 +97,9 @@ def test_wrapper_takes_the_plain_version_on_cpu_only(case):
     b = tex.exact_transform_plain(
         torch.from_numpy(case["blocks"]), case["tables"]
     )
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert a[2].shape == () and a[2].dtype == torch.int64
+    assert int(a[2]) == int(a[1].sum())
     assert tex.launches == before  # no kernel launch on a CPU tensor
 
 
@@ -251,9 +258,174 @@ def test_fragment_model_equals_the_plain_version(case, content, quality):
               else CodecTables.build(quality, "cpu"))
     q, zz, flags = dmma_model(blocks, tables)
     assert np.abs(q - _reference_q(blocks, tables)).max() < 1e-12
-    zz_p, fl_p = tex.exact_transform_plain(torch.from_numpy(blocks), tables)
+    zz_p, fl_p, _ = tex.exact_transform_plain(torch.from_numpy(blocks), tables)
     keep = (flags == 0) & (fl_p.numpy() == 0)
     assert keep.sum() > 0.9 * len(blocks)
     assert np.array_equal(zz[:, keep], zz_p.numpy()[:, keep])
     if content == "case":  # the exact DC ties are flagged
         assert flags[-N_TIE:].all()
+
+
+# ---- the settle step: scipy's DCT in scipy's order, bit for bit ----------
+
+def _scipy_dct2(x: np.ndarray) -> np.ndarray:
+    from scipy.fftpack import dct
+
+    return dct(dct(x, norm="ortho", axis=-2), norm="ortho", axis=-1)
+
+
+def _oracle_dct2(x: np.ndarray) -> np.ndarray:
+    """(k, 8, 8) float64 -> the 2-D DCT through ``oracle_dct8``: columns
+    (axis -2), then rows, as ``golden.block_dct``."""
+    t = torch.from_numpy(x)
+    y = torch.stack(tex.oracle_dct8([t[:, i, :] for i in range(8)]), dim=1)
+    return torch.stack(tex.oracle_dct8([y[:, :, j] for j in range(8)]),
+                       dim=2).numpy()
+
+
+def _corpus_blocks(seed: int, count: int = 12) -> np.ndarray:
+    """The blocks of ``count`` 256x256 images of the benchmark's corpus
+    generator at ``seed``."""
+    from portbench.generators.synthetic_corpus import image
+
+    seqs = np.random.SeedSequence(seed).spawn(count)
+    imgs = np.stack([image(256, 256, s) for s in seqs])
+    return np.array(jtransform.blockify(imgs)).reshape(-1, 64)
+
+
+def _tie_blocks() -> np.ndarray:
+    """Blocks whose exact coefficient at quality 50 is a rounding tie: sums
+    of 64 mod 128 (DC), a row pattern for (0, 4), a column pattern for
+    (4, 0), a checker of 16 pixels for (4, 4); then every constant block
+    (all-0 and all-255 among them; an odd level is a DC tie)."""
+    rng = np.random.RandomState(41)
+    dc = rng.randint(1, 255, (2000, 64))
+    dc[:, 0] += (64 - dc.sum(axis=1)) % 128  # sum = 64 mod 128
+    keep = dc[:, 0] <= 255
+    s = np.array([1, -1, -1, 1, 1, -1, -1, 1])  # sign of cos((2j+1)pi/4)
+    row = np.full((8, 8), 128)
+    row[0] += 12 * s  # (0, 4): 8 * 12 / (8 * 24) = 0.5
+    col = np.full((8, 8), 128)
+    col[:, 0] += 9 * s  # (4, 0): 8 * 9 / (8 * 18) = 0.5
+    checker = np.full((8, 8), 128)
+    checker[:2] += 17 * np.outer(s, s)[:2]  # (4, 4): 16 * 17 / (8 * 68)
+    const = np.repeat(np.arange(256)[:, None], 64, axis=1)
+    blocks = np.concatenate([dc[keep], row.reshape(1, 64),
+                             col.reshape(1, 64), checker.reshape(1, 64),
+                             const])
+    return blocks.astype(np.uint8)
+
+
+def _dct_cases(name: str) -> np.ndarray:
+    if name == "random":
+        return np.random.RandomState(17).randint(
+            0, 256, (200_000, 64)).astype(np.uint8)
+    if name == "ties":
+        return _tie_blocks()
+    blocks = _corpus_blocks(int(name.split("-")[1]))
+    tables = CodecTables.build(QUALITY, "cpu")
+    _, flags, _ = tex.exact_transform_plain(torch.from_numpy(blocks), tables)
+    flagged = blocks[flags.numpy() != 0]
+    assert len(flagged) >= 100
+    return flagged
+
+
+@pytest.mark.parametrize("name", ["random", "corpus-1", "corpus-2",
+                                  "corpus-3", "ties"])
+def test_oracle_dct_is_scipys_bit_for_bit(name):
+    blocks = _dct_cases(name)
+    x = blocks.reshape(-1, 8, 8).astype(np.float64) - 128.0
+    assert _oracle_dct2(x).tobytes() == _scipy_dct2(x).tobytes()
+
+
+def test_constructed_ties_are_flagged_and_settled():
+    blocks = _tie_blocks()
+    tables = CodecTables.build(QUALITY, "cpu")
+    zz, flags, count = tex.exact_transform_plain(torch.from_numpy(blocks),
+                                                 tables)
+    x = blocks.reshape(-1, 8, 8).astype(np.float64) - 128.0
+    exact_q = (tables.dct_basis.numpy() @ x @ tables.dct_basis.numpy().T
+               / tables.divisors.numpy())
+    tie = (np.abs(np.abs(exact_q - np.rint(exact_q)) - 0.5) < 1e-6).reshape(
+        -1, 64).any(axis=1)
+    built = len(blocks) - 256 + 128  # the constructs, the odd levels
+    assert tie.sum() == built and tie[:len(blocks) - 256].all()
+    assert np.array_equal(flags.numpy() != 0, tie)
+    assert int(count) == built
+    gold = jgolden.quantize(jgolden.block_dct(x), QUALITY).reshape(
+        -1, 64)[:, ZIGZAG_ORDER]
+    assert np.array_equal(zz.numpy().T, gold)
+
+
+@pytest.mark.parametrize("quality", [10, 50, 90])
+def test_plain_version_equals_the_oracle_on_every_block(quality):
+    """Divisors that are not whole numbers at quality 90 (16 x 0.2 = 3.2):
+    a flagged block divides as the oracle does, not by the reciprocal."""
+    blocks = np.concatenate([_corpus_blocks(quality, 4), _tie_blocks(),
+                             _dense_blocks(quality, 4000)])
+    tables = CodecTables.build(quality, "cpu")
+    zz, flags, count = tex.exact_transform_plain(torch.from_numpy(blocks),
+                                                 tables)
+    assert int(count) == int(flags.sum()) > 0
+    x = blocks.reshape(-1, 8, 8).astype(np.float64) - 128.0
+    gold = jgolden.quantize(jgolden.block_dct(x), quality).reshape(
+        -1, 64)[:, ZIGZAG_ORDER]
+    assert np.array_equal(zz.numpy().T, gold)
+    assert np.array_equal(
+        tex.oracle_coefficients(torch.from_numpy(blocks), tables).numpy(),
+        gold)
+
+
+def _kernel_constant(name: str) -> float:
+    got = re.search(rf"\b{name} = (-?0x[0-9a-fp.+-]+)[,;]",
+                    _kernel_source())
+    return float.fromhex(got.group(1))
+
+
+def test_kernel_bakes_in_the_plain_versions_constants():
+    """The kernel's ``dct8`` constants, read from its source, are the
+    plain version's bit for bit."""
+    assert (_kernel_constant("WR"), _kernel_constant("WI")) == tex._FFT_ROOT
+    assert tuple(_kernel_constant(f"T{k}") for k in range(1, 8)) == (
+        tex._DCT_TWIDDLE)
+    assert _kernel_constant("HALF_SQRT2") == tex._HALF_SQRT2
+
+
+def transpose8_model(v: np.ndarray) -> np.ndarray:
+    """The kernel's ``transpose8``: (k, 8 lanes, 8 registers) -> the same
+    after its three exchanges, lane l reading lane l ^ m's value."""
+    v = v.copy()
+    lane = np.arange(8)
+    for m in (4, 2, 1):
+        hi = (lane & m) != 0
+        for i in range(8):
+            if i & m:
+                continue
+            send = np.where(hi, v[..., i], v[..., i | m])
+            got = send[..., lane ^ m]
+            v[..., i] = np.where(hi, got, v[..., i])
+            v[..., i | m] = np.where(hi, v[..., i | m], got)
+    return v
+
+
+def test_transpose_model_transposes():
+    v = np.arange(3 * 64, dtype=np.float64).reshape(3, 8, 8)
+    assert np.array_equal(transpose8_model(v), v.transpose(0, 2, 1))
+
+
+@pytest.mark.parametrize("quality", [10, 50, 90])
+def test_settle_model_equals_the_oracle(quality):
+    """The settle step as the kernel's eight lanes run it: lane c takes
+    column c of the pixels, the length-8 DCT, the exchange, the DCT of its
+    row, division by its row of divisors, half to even; every coefficient
+    the oracle's, on tie blocks and dense ones."""
+    blocks = np.concatenate([_tie_blocks(), _dense_blocks(quality, 2000)])
+    tables = CodecTables.build(quality, "cpu")
+    px = blocks.reshape(-1, 8, 8).astype(np.float64) - 128.0
+    lanes = px.transpose(0, 2, 1)  # [block, lane c, register i] = x[i][c]
+    cols = np.stack(tex.oracle_dct8([lanes[..., i] for i in range(8)]), -1)
+    rows = transpose8_model(cols)  # [block, lane c, register j] = Y[c][j]
+    c = np.stack(tex.oracle_dct8([rows[..., j] for j in range(8)]), -1)
+    q = np.rint(c / tables.divisors.numpy()).astype(np.int32)
+    gold = jgolden.quantize(jgolden.block_dct(px), quality)
+    assert np.array_equal(q, gold)

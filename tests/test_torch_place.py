@@ -33,7 +33,7 @@ def _encoded(imgs: np.ndarray, quality: int):
     kernel's in test_torch_encode2.py) for a (B, H, W) batch."""
     t = CodecTables.build(quality, "cpu")
     blocks = ttransform.blockify(torch.from_numpy(imgs)).reshape(-1, 64)
-    zz = exact_coefficients(blocks, quality, t)
+    zz = exact_coefficients(blocks, t)
     nb = blocks.shape[0] // imgs.shape[0]
     packed, meta, over = tenc.encode2(zz, t, nb, from_zz=True)
     assert not bool(over)

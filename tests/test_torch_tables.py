@@ -23,7 +23,7 @@ def _from_jax(quality):
     dc_comb, ac_comb, zp0, zp1, _ = jentropy._symbol_tables()
     return CodecTables.from_numpy(
         m, off[0], jtransform.dct_basis(),
-        1.0 / jc.quant_divisors(quality), dc_comb, ac_comb, zp0, zp1,
+        jc.quant_divisors(quality), dc_comb, ac_comb, zp0, zp1,
         device="cpu",
     )
 

@@ -21,8 +21,8 @@ from tinyimgcodec_tpu_torch.tables import CodecTables
 
 from conftest import synthetic_image
 
-ENCODE_STAGES = ["upload", "transform", "recompute", "entropy", "place",
-                 "pull", "assemble"]
+ENCODE_STAGES = ["upload", "transform", "entropy", "place", "pull",
+                 "assemble"]
 
 
 def _images(n=2, h=16, w=24, seed=3) -> np.ndarray:
@@ -83,7 +83,22 @@ def test_flagged_counts_the_blocks_exact_transform_flags():
     want = int(exact_transform(blocks, tables)[1].sum())
     assert want >= 1
     _, recs, _ = _traced(lambda: api.compress_batch(images, device="cpu"))
-    assert _one(recs, "codec.encode.recompute").counts == {"flagged": want}
+    assert _one(recs, "codec.encode.transform").counts == {"flagged": want}
+    assert not any(r.name == "codec.encode.recompute" for r in recs)
+
+
+def test_an_exact_encode_opens_no_nonzero_and_no_recompute():
+    """The flagged blocks are settled inside ``exact_transform``, their
+    count rides the status pull: no ``aten::nonzero`` (a host sync on a
+    card), no host recompute stage."""
+    images = _images()
+    _, recs, events = _traced(lambda: api.compress_batch(images,
+                                                         device="cpu"))
+    names = {e.name() for e in events}
+    assert "aten::nonzero" not in names
+    assert "codec.encode.transform" in names
+    assert "codec.encode.recompute" not in names
+    assert _one(recs, "codec.encode.transform").counts["flagged"] >= 1
 
 
 @pytest.mark.parametrize("block_index", [True, False],
@@ -127,7 +142,7 @@ def test_a_local_mesh_records_each_shard_in_the_callers_call():
         assert all((r.call_id, r.parent_id) == (call.call_id, call.span_id)
                    for r in mine)
     assert sum(r.counts["flagged"] for r in stages
-               if r.name == "codec.encode.recompute") >= 1
+               if r.name == "codec.encode.transform") >= 1
 
 
 def test_a_record_lies_on_the_profilers_clock():
@@ -135,7 +150,7 @@ def test_a_record_lies_on_the_profilers_clock():
                                                          device="cpu"))
     starts = {e.name(): e.start_ns() for e in events
               if e.name().startswith("codec.")}
-    assert len(starts) == len(recs) == 8
+    assert len(starts) == len(recs) == 1 + len(ENCODE_STAGES)
     for r in recs:
         assert abs(r.start_ns - starts[r.name]) < 1_000_000, r.name
 
@@ -167,9 +182,9 @@ def test_spans_reach_the_benchmarks_timeline_and_name_an_idle_gap():
     tl = tracing.timeline(events, {"api.compress_batch"}, [0])
     names = {n for _, _, n in tl["host_ops"]}
     assert {r.name for r in recs} <= names
-    # a gap in the recompute stage where no torch operation is open (the
-    # host's float64 arithmetic): the card busy before and after it
-    stage = _one(recs, "codec.encode.recompute")
+    # a gap in the assembly stage where no torch operation is open (the
+    # host's Python and bytes): the card busy before and after it
+    stage = _one(recs, "codec.encode.assemble")
     inner = sorted((s, e) for s, e, n in tl["host_ops"]
                    if stage.start_ns < s < stage.end_ns)
     free, at = [], stage.start_ns
@@ -181,7 +196,7 @@ def test_spans_reach_the_benchmarks_timeline_and_name_an_idle_gap():
     a, b = tl["window"]
     tl["device_ops"] = [(0, a, lo, "k", "kernel"), (0, hi, b, "k", "kernel")]
     assert tracing.breakdown(tl)["idle_gaps"] == [
-        ["api.compress_batch > codec.encode.recompute", (hi - lo) / 1e9]]
+        ["api.compress_batch > codec.encode.assemble", (hi - lo) / 1e9]]
 
 
 def test_the_chrome_trace_shows_the_spans(tmp_path):
@@ -189,4 +204,4 @@ def test_the_chrome_trace_shows_the_spans(tmp_path):
         api.compress_batch(_images(), device="cpu")
     with open(tmp_path / "trace.json") as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert {"codec.compress_batch", "codec.encode.recompute"} <= names
+    assert {"codec.compress_batch", "codec.encode.transform"} <= names

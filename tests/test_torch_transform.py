@@ -96,7 +96,7 @@ def test_encode_blocks_takes_tables_from_numpy():
     m, off = jtransform._fast_encode_matrix(q)
     dc_comb, ac_comb, zp0, zp1, _ = jentropy._symbol_tables()
     t = CodecTables.from_numpy(
-        m, off[0], jtransform.dct_basis(), 1.0 / jc.quant_divisors(q),
+        m, off[0], jtransform.dct_basis(), jc.quant_divisors(q),
         dc_comb, ac_comb, zp0, zp1,
     )
     blocks = ttransform.blockify(

@@ -1,6 +1,8 @@
 // Exact (float64) block transform for Hopper: level shift, separable 8x8
 // DCT, multiply by the reciprocal quantization divisors, round half to
-// even, zig-zag; plus a per-block flag for roundings within 1e-9 of a tie.
+// even, zig-zag; a per-block flag for roundings within 1e-9 of a tie; and
+// every flagged block computed again in the float64 oracle's own
+// arithmetic, so that every block's coefficients are the oracle's.
 //
 // Replaces the double-float Pallas kernel of the JAX package
 // (tinyimgcodec_tpu/ops/pallas_exact.py, _make_kernel).  That kernel
@@ -35,15 +37,25 @@
 //     doubles by the same kind of exponent trick, without a conversion
 //     instruction;
 //   - the coefficients go to a (64, TILE) box in shared memory at their
-//     zig-zag row and leave row by row, 16 bytes a store when N is a
-//     multiple of 4, 4 bytes else.
+//     zig-zag row; the flagged blocks of the tile are listed there, and
+//     each is settled by eight lanes (below) over the box's column before
+//     the box leaves row by row, 16 bytes a store when N is a multiple of
+//     4, 4 bytes else; one atomic add a tile counts the flagged blocks.
 //
 // The tensor cores sum in their own order, so a coefficient may differ
-// from the plain version's (which rounds after every multiply and every
-// add, ascending i then j) in its last bits: around 1e-13 on these
+// from the oracle's (scipy's DCT) in its last bits: around 1e-13 on these
 // magnitudes, far inside the 1e-9 tie window, so an unflagged coefficient
-// rounds alike in both, and the caller recomputes every flagged block with
-// the float64 host oracle.
+// rounds as the oracle's does.  A true tie (the DC of a block whose sum is
+// 64 mod 128 at quality 50; (0,4), (4,0), (4,4) are rational too) rounds
+// whichever way scipy's own arithmetic lands, so a flagged block is
+// computed again in scipy's operations and order: lane c of its eight
+// takes column c, runs the length-8 DCT of pocketfft (dct8 below, the
+// constants baked in bit for bit as that code computes them), the eight
+// lanes transpose the 8x8 by three shuffle exchanges, each runs the same
+// DCT on its row, divides by the float64 divisors (IEEE division, as the
+// oracle; not the reciprocal product) and rounds half to even.  The file
+// builds with -fmad=false, so no multiply and add is contracted.  The
+// plain version (ops/exact_transform.py) does the same step elementwise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -100,6 +112,80 @@ __device__ __forceinline__ double shifted_pixel(uint32_t word, int sh) {
            (TWO52 + 128.0);
 }
 
+// The length-8 orthonormal DCT-II of v in place, in the operations and
+// order of scipy's (pocketfft's T_dcst23, type 2: a pre-pass, a backward
+// real FFT of a radix-2 then a radix-4 pass scaled by 1/4, a post-twiddle,
+// the DC times sqrt(2) / 2), with its constants as that code computes them
+// (the two parts of its root of unity differ in the last bit).
+__device__ __forceinline__ void dct8(double v[8]) {
+    constexpr double WR = 0x1.6a09e667f3bccp-1, WI = 0x1.6a09e667f3bcdp-1;
+    constexpr double T1 = 0x1.f6297cff75cbp-1, T2 = 0x1.d906bcf328d46p-1,
+                     T3 = 0x1.a9b66290ea1a3p-1, T4 = 0x1.6a09e667f3bccp-1,
+                     T5 = 0x1.1c73b39ae68c8p-1, T6 = 0x1.87de2a6aea963p-2,
+                     T7 = 0x1.8f8b83c69a60ap-3;
+    constexpr double HALF_SQRT2 = 0x1.6a09e667f3bcdp-1;
+    double x[8];
+    x[0] = v[0] * 2.0;
+    x[7] = v[7] * 2.0;
+#pragma unroll
+    for (int k = 1; k < 7; k += 2) {
+        x[k] = v[k + 1] + v[k];
+        x[k + 1] = v[k + 1] - v[k];
+    }
+    const double tr2 = x[1] - x[5], ti2 = x[2] + x[6];
+    const double y[8] = {x[0] + x[7],         x[1] + x[5],
+                         x[2] - x[6],         2.0 * x[3],
+                         x[0] - x[7],         WR * tr2 - WI * ti2,
+                         WR * ti2 + WI * tr2, -2.0 * x[4]};
+    double r[8];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+        const double a = y[4 * k], b = y[4 * k + 1], c = y[4 * k + 2],
+                     d = y[4 * k + 3];
+        const double s2 = a + d, s1 = a - d, s3 = 2.0 * b, s4 = 2.0 * c;
+        r[k] = s2 + s3;
+        r[k + 4] = s2 - s3;
+        r[k + 6] = s1 + s4;
+        r[k + 2] = s1 - s4;
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) r[k] *= 0.25;
+    v[0] = r[0] * HALF_SQRT2;
+    double t1 = T1 * r[7] + T7 * r[1], t2 = T1 * r[1] - T7 * r[7];
+    v[1] = 0.5 * (t1 + t2);
+    v[7] = 0.5 * (t1 - t2);
+    t1 = T2 * r[6] + T6 * r[2];
+    t2 = T2 * r[2] - T6 * r[6];
+    v[2] = 0.5 * (t1 + t2);
+    v[6] = 0.5 * (t1 - t2);
+    t1 = T3 * r[5] + T5 * r[3];
+    t2 = T3 * r[3] - T5 * r[5];
+    v[3] = 0.5 * (t1 + t2);
+    v[5] = 0.5 * (t1 - t2);
+    v[4] = r[4] * T4;
+}
+
+// Eight lanes (an aligned eighth of the warp, c = lane & 7) holding an
+// 8x8 by columns, v[i] = M[i][c], come to hold it by rows, v[j] = M[c][j]:
+// three exchanges, the step-m one swapping M's entries whose lane and
+// register differ in bit m with the lane across that bit.
+__device__ __forceinline__ void transpose8(double v[8], int c) {
+#pragma unroll
+    for (int m = 4; m >= 1; m >>= 1) {
+        const bool hi = c & m;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            if (i & m) continue;
+            const double send = hi ? v[i] : v[i | m];
+            const double got = __shfl_xor_sync(FULL, send, m);
+            if (hi)
+                v[i] = got;
+            else
+                v[i | m] = got;
+        }
+    }
+}
+
 // quantize and round one coefficient; returns 1 if it lies near a tie
 __device__ __forceinline__ int quantize(double c, double r, int* out) {
     const double q = c * r;
@@ -113,17 +199,22 @@ __global__ void __launch_bounds__(THREADS)
 exact_transform_kernel(const uint8_t* __restrict__ pix,
                        const double* __restrict__ basis,
                        const double* __restrict__ recip,
-                       int* __restrict__ zz, int* __restrict__ flags, int n,
+                       const double* __restrict__ divisors,
+                       int* __restrict__ zz, int* __restrict__ flags,
+                       unsigned long long* __restrict__ flagged, int n,
                        int in_align, int out_quads) {
+    static_assert(TILE == THREADS, "a thread lists one block's flag");
     __shared__ __align__(16) uint32_t s_pix[TILE * 16];  // (TILE, 64) bytes
     __shared__ int s_out[64 * OUT_STRIDE];  // (64, TILE) box
-    __shared__ int s_flag[TILE];
+    __shared__ int s_flag[TILE];  // the flags, then the flagged blocks
+    __shared__ int s_nflag;
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int wid = tid >> 5;
     const int g = lane >> 2, q = lane & 3;
     const int b0 = blockIdx.x * TILE;
     const int live = min(TILE, n - b0);
+    if (tid == 0) s_nflag = 0;
 
     // ---- the tile's pixels into shared memory ---------------------------
     const uint8_t* src = pix + (size_t)b0 * 64;
@@ -177,7 +268,39 @@ exact_transform_kernel(const uint8_t* __restrict__ pix,
     }
     __syncthreads();
 
-    // ---- out row by row: (64, N) coefficients, then the flags -----------
+    // ---- the flags out, and the flagged blocks listed -------------------
+    const int mine = tid < live ? s_flag[tid] : 0;
+    if (tid < live) flags[b0 + tid] = mine;
+    __syncthreads();
+    if (mine) s_flag[atomicAdd(&s_nflag, 1)] = tid;
+    __syncthreads();
+    const int nflag = s_nflag;
+    if (tid == 0 && nflag) atomicAdd(flagged, (unsigned long long)nflag);
+
+    // ---- each flagged block settled in the oracle's arithmetic: eight
+    // lanes a block, four blocks a warp; lanes past the list redo its last
+    // block and store nothing -------------------------------------------
+    const int col = lane & 7;
+    for (int base = wid * 4; base < nflag; base += 4 * WARPS) {
+        const int f = base + (lane >> 3);
+        const int bl = s_flag[min(f, nflag - 1)];
+        const uint8_t* px = reinterpret_cast<const uint8_t*>(s_pix) + bl * 64;
+        double v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[i] = (double)px[i * 8 + col] - 128.0;
+        dct8(v);  // column col: v[u] = Y[u][col]
+        transpose8(v, col);
+        dct8(v);  // row col: v[j] = C[col][j]
+        if (f < nflag) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+                s_out[ZZ_SLOT[col * 8 + j] * OUT_STRIDE + bl] =
+                    __double2int_rn(v[j] / divisors[col * 8 + j]);
+        }
+    }
+    __syncthreads();
+
+    // ---- out row by row: (64, N) coefficients ---------------------------
     if (out_quads) {  // N % 4 == 0, so live % 4 == 0 and rows start on 16 B
         const int quads = live >> 2;
         // a warp a row: TILE / 4 lanes, each 16 bytes; the ragged last tile
@@ -195,18 +318,22 @@ exact_transform_kernel(const uint8_t* __restrict__ pix,
             zz[(size_t)r * n + b0 + c] = s_out[r * OUT_STRIDE + c];
         }
     }
-    for (int i = tid; i < live; i += THREADS) flags[b0 + i] = s_flag[i];
 }
 
 }  // namespace
 
-// pix (n, 64) uint8, any byte alignment; basis, recip (64) double; zz
-// (64, n) int32; flags (n) int32.  Launches on `stream`, returns
+// pix (n, 64) uint8, any byte alignment; basis, recip, divisors (64)
+// double; zz (64, n) int32; flags (n) int32; flagged one int64, set to the
+// count of flagged blocks.  Launches on `stream`, returns
 // cudaGetLastError().
 extern "C" int exact_transform_launch(const void* pix, const void* basis,
-                                      const void* recip, void* zz,
-                                      void* flags, int n, void* stream) {
-    if (n <= 0) return 0;
+                                      const void* recip,
+                                      const void* divisors, void* zz,
+                                      void* flags, void* flagged, int n,
+                                      void* stream) {
+    cudaMemsetAsync(flagged, 0, sizeof(unsigned long long),
+                    (cudaStream_t)stream);
+    if (n <= 0) return (int)cudaGetLastError();
     const uintptr_t p = reinterpret_cast<uintptr_t>(pix);
     const int in_align = p % 16 == 0 ? 16 : p % 4 == 0 ? 4 : 1;
     const int out_quads =
@@ -214,6 +341,7 @@ extern "C" int exact_transform_launch(const void* pix, const void* basis,
     const int grid = (n + TILE - 1) / TILE;
     exact_transform_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)pix, (const double*)basis, (const double*)recip,
-        (int*)zz, (int*)flags, n, in_align, out_quads);
+        (const double*)divisors, (int*)zz, (int*)flags,
+        (unsigned long long*)flagged, n, in_align, out_quads);
     return (int)cudaGetLastError();
 }

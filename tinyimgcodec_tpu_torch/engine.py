@@ -229,9 +229,9 @@ class Engine:
         ``container.compress(image, quality, True, block_index=...)`` in
         exact mode.
 
-        Coefficients on the device (exact: ``exact_transform`` + the
-        float64 recompute of flagged blocks; fast: the float32 transform
-        pass of ``encode2``), in block ranges of at most
+        Coefficients on the device (exact: ``exact_transform``, which
+        settles its flagged blocks in the oracle's arithmetic; fast: the
+        float32 transform pass of ``encode2``), in block ranges of at most
         ``pipeline.MAX_PIXELS`` pixels, pulled once for the histograms and
         the table (the same canonical construction as the host path).
         Then, before any launch, the route: the host container when the
@@ -252,8 +252,8 @@ class Engine:
         # in sub-ranges of at most one kernel call's pixels, as the tiled
         # path cuts an image of more than ``MAX_PIXELS``
         zz_list = tiled.range_coefficients(
-            padded, 0, nb, quality, CodecTables.build(quality, dev),
-            self.precision, dev)
+            padded, 0, nb, CodecTables.build(quality, dev), self.precision,
+            dev)
         zz_np = np.concatenate([zz.cpu().numpy() for zz in zz_list], axis=1)
         dc = np.diff(zz_np[0], prepend=np.int32(0)).astype(np.int32)
         ac = np.ascontiguousarray(zz_np[1:].T)
@@ -313,7 +313,7 @@ class Engine:
         for k, (a, b) in enumerate(ranges):
             blocks = tiled.range_blocks(padded, a, b, dev)
             if self.precision == transform.EXACT:
-                zz = exact_coefficients(blocks, quality, tables)
+                zz = exact_coefficients(blocks, tables)
                 w, n, flag = encode1(zz.T.contiguous(), tables, b - a,
                                      from_zz=True)
             else:

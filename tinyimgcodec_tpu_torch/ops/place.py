@@ -66,7 +66,8 @@ def place_plain(packed: torch.Tensor, meta: torch.Tensor, nb: int,
                 cap_words: int):
     """Plain PyTorch version (any device): an ``index_add_`` of every row
     word into a zeroed stream (blocks' bits never overlap, so ADD == OR);
-    words are carried as int64."""
+    words are carried as int64.  Words outside the capacity go to one
+    spare word past it, dropped after (no boolean mask: no host sync)."""
     n = _check(packed, meta, nb)
     dev = packed.device
     words = packed.to(torch.int64) & 0xFFFFFFFF
@@ -74,8 +75,10 @@ def place_plain(packed: torch.Tensor, meta: torch.Tensor, nb: int,
         ROW_WORDS, device=dev
     ).reshape(1, ROW_WORDS)
     keep = (idx < cap_words) & (idx >= 0)
-    stream = torch.zeros(cap_words, dtype=torch.int64, device=dev)
-    stream.index_add_(0, idx[keep], words[keep])
+    stream = torch.zeros(cap_words + 1, dtype=torch.int64, device=dev)
+    stream.index_add_(0, torch.where(keep, idx, cap_words).reshape(-1),
+                      words.reshape(-1))
+    stream = stream[:cap_words]
     stream = torch.where(stream >= 1 << 31, stream - (1 << 32), stream)
     return (stream.to(torch.int32),) + _summary(meta, nb, cap_words)
 

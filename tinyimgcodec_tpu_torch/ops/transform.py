@@ -67,8 +67,8 @@ def encode_blocks(
     quantized coefficients (DC at index 0, not yet DPCM'd).
 
     with_flags=True additionally returns a per-block bool: in exact mode
-    it marks blocks with a rounding within 1e-9 of a tie (to be
-    recomputed by the float64 host oracle); in fast mode it is all False.
+    it marks blocks with a rounding within 1e-9 of a tie (already settled
+    in the float64 oracle's arithmetic); in fast mode it is all False.
     """
     if tables is None:
         tables = CodecTables.build(quality, blocks.device)
@@ -82,7 +82,7 @@ def encode_blocks(
     elif precision == EXACT:
         from .exact_transform import exact_transform_plain
 
-        zz_cm, f = exact_transform_plain(
+        zz_cm, f, _ = exact_transform_plain(
             blocks.reshape(-1, 64).to(torch.uint8), tables
         )
         zz = zz_cm.T.reshape(*lead, 64)

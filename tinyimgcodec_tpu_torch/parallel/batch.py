@@ -5,8 +5,9 @@ a self-contained stream, so nothing is carried across shards: the batch is
 split into one group of ``ceil(B / n)`` consecutive images a shard (the
 last group padded with repeats of the last image, so every shard runs the
 same shapes), each shard runs the port's pipeline on its group on its own
-device -- ``exact_transform`` (exact), ``encode2`` and ``place``, with the
-float64 recompute of its own flagged blocks, or the decode kernel -- and
+device -- ``exact_transform`` (exact, its tie-flagged blocks settled on
+the device in the oracle's arithmetic), ``encode2`` and ``place``, or the
+decode kernel -- and
 the results are all-gathered in the caller's order, the padding dropped.
 A shard is a card of this process (the default mesh: every visible card),
 a rank of a process group, or one of several cards in each process of a
@@ -133,9 +134,9 @@ def compress_batch_sharded(
 ) -> list[bytes]:
     """The counterpart of the JAX package's
     ``compress_batch_pallas_sharded``: every shard runs ``exact_transform``
-    (exact) / ``encode2`` / ``place`` on its group and recomputes its own
-    flagged blocks -- the bytes of the JAX stage 1 -> host -> stage 2, the
-    oracle's in exact mode.  No trailer.  ``mesh`` and ``device`` as in
+    (exact) / ``encode2`` / ``place`` on its group, ``exact_transform``
+    settling its own flagged blocks -- the bytes of the JAX stage 1 ->
+    host -> stage 2, the oracle's in exact mode.  No trailer.  ``mesh`` and ``device`` as in
     :func:`compress_batch`."""
     if mesh is None:
         mesh = make_mesh(device=device)

@@ -80,8 +80,8 @@ def range_blocks(image, start: int, stop: int,
     return blocks[start - r0 * wb:stop - r0 * wb]
 
 
-def range_coefficients(image, start: int, stop: int, quality: int,
-                       tables: CodecTables, precision: str,
+def range_coefficients(image, start: int, stop: int, tables: CodecTables,
+                       precision: str,
                        dev: torch.device) -> list[torch.Tensor]:
     """The (64, n) int32 coefficients of every sub-range of ``[start,
     stop)``: exact ones equal the float64 oracle's."""
@@ -89,7 +89,7 @@ def range_coefficients(image, start: int, stop: int, quality: int,
     for a, b in sub_ranges(start, stop):
         blocks = range_blocks(image, a, b, dev)
         if precision == transform.EXACT:
-            out.append(pipeline.exact_coefficients(blocks, quality, tables))
+            out.append(pipeline.exact_coefficients(blocks, tables))
         else:
             out.append(fast_coefficients(blocks, tables))
     return out
@@ -160,8 +160,8 @@ def _encode(mesh: Mesh, image, quality: int, precision: str, assemble: str,
     nb = (image.shape[0] // 8) * (image.shape[1] // 8)
     start, stop = block_range(nb, mesh.size, mesh.rank)
     tables = CodecTables.build(quality, dev)
-    zz_list = range_coefficients(image, start, stop, quality, tables,
-                                 precision, dev)
+    zz_list = range_coefficients(image, start, stop, tables, precision,
+                                 dev)
     dc_first = None
     if mesh.size > 1:
         last = (zz_list[-1][0, -1:] if zz_list

@@ -8,12 +8,13 @@ on an NVIDIA card.  Per batch:
   transform and symbols, each block packed from bit 0 of its own row] ->
   [stitch: look-back scan + funnel-shift gather] (``version="v1"``, the JAX
   package's comparison path; same bytes)
-- exact: pixels -> [exact_transform: float64 on the tensor cores + tie
-  flags] -> host float64 recompute of the flagged blocks (one host sync)
-  -> [encode2 from coefficients] -> [place]
+- exact: pixels -> [exact_transform: float64 on the tensor cores, the
+  tie-flagged blocks settled in the oracle's own arithmetic inside the
+  same kernel] -> [encode2 from coefficients] -> [place]
 
-followed by one pull of the stream words, image starts, total and status,
-and per-image slicing at the byte-aligned image starts.  Exact-mode bytes
+followed by one pull of the stream words, image starts, total and status
+(and, in exact mode, the count of flagged blocks with them), and
+per-image slicing at the byte-aligned image starts.  Exact-mode bytes
 equal ``container.compress(..., block_index=...)``, the float64 host
 oracle.  Each stage is a ``codec.encode.*`` span of ``profiling.span``.
 
@@ -31,8 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import container, golden, profiling
-from .constants import ZIGZAG_ORDER
+from . import container, profiling
 from .device import resolve_device
 from .golden import CodecArrays
 from .ops import transform
@@ -59,33 +59,13 @@ class TableRangeError(ValueError):
         super().__init__(msg)
 
 
-def _host_zz64(pixel_rows: np.ndarray, quality: int) -> np.ndarray:
-    """(k, 64) pixel rows -> (k, 64) float64-quantized zig-zag rows: the
-    oracle's arithmetic, used to settle tie-flagged blocks."""
-    coeffs = golden.quantize(
-        golden.block_dct(
-            pixel_rows.reshape(-1, 8, 8).astype(np.float64) - 128.0
-        ),
-        quality,
-    )
-    return coeffs.reshape(-1, 64)[:, ZIGZAG_ORDER]
-
-
-def exact_coefficients(blocks: torch.Tensor, quality: int,
+def exact_coefficients(blocks: torch.Tensor,
                        tables: CodecTables) -> torch.Tensor:
     """(N, 64) uint8 blocks -> (64, N) int32 coefficients equal to the
-    float64 oracle's: device transform, then the flagged blocks (roundings
-    within 1e-9 of a tie) are recomputed on the host and patched in."""
+    float64 oracle's, on the blocks' device, with no host sync:
+    ``exact_transform`` settles its tie-flagged blocks itself."""
     with profiling.span("codec.encode.transform"):
-        zz, flags = exact_transform(blocks, tables)
-    with profiling.span("codec.encode.recompute") as stage:
-        idx = torch.nonzero(flags).reshape(-1)  # host sync: the count
-        stage.set(flagged=idx.numel())
-        if idx.numel():
-            pix = blocks[idx].cpu().numpy()
-            fixed = _host_zz64(pix, quality).astype(np.int32)
-            zz[:, idx] = torch.from_numpy(fixed.T.copy()).to(zz.device)
-    return zz
+        return exact_transform(blocks, tables)[0]
 
 
 def check_pixels(h: int, w: int) -> None:
@@ -100,29 +80,33 @@ def check_pixels(h: int, w: int) -> None:
         )
 
 
-def _assemble(launch, overflow: torch.Tensor, n: int, cap_words: int):
+def _assemble(launch, overflow: torch.Tensor, n: int, cap_words: int,
+              rider: torch.Tensor | None = None):
     """Run the stream assembly ``launch(cap) -> (stream, starts, total,
     status)`` (status bit 2: the stream passed ``cap`` words) at
     ``cap_words``, once more at ``n * 52`` words (the worst case) if that
     was too small: (the stream words up to the total's last word, still
     on the device; image starts (B,); total bits; whether ``overflow``
     says a coefficient lies outside the Huffman tables -- then nothing is
-    retried)."""
+    retried; the value of ``rider``, a 0-d int64 device tensor read in
+    the same pull as the status, or ``None``)."""
+    extra = [] if rider is None else [rider]
 
     def run(cap):
         stream, starts, total, status = launch(cap)
         status = status.to(torch.int64) + overflow.to(torch.int64) * 4
-        head = torch.stack([status, total.to(torch.int64)]).cpu()  # sync
-        return stream, starts, int(head[1]), int(head[0])
+        head = torch.stack([status, total.to(torch.int64), *extra]).cpu()
+        return stream, starts, int(head[1]), int(head[0]), head  # synced
 
     with profiling.span("codec.encode.place", retried=0) as stage:
-        stream, starts, total, status = run(max(cap_words, 1))
+        stream, starts, total, status, head = run(max(cap_words, 1))
         if status & 2 and not status & 4:
             stage.set(retried=1)
-            stream, starts, total, status = run(n * 52)
+            stream, starts, total, status, head = run(n * 52)
             if status & 2:
                 raise ValueError("stream capacity overflow (worst case!)")
-    return stream[: -(-total // 32)], starts, total, bool(status & 4)
+    return (stream[: -(-total // 32)], starts, total, bool(status & 4),
+            int(head[2]) if extra else None)
 
 
 def stream_bytes(words: torch.Tensor, total: int) -> bytes:
@@ -134,15 +118,16 @@ def stream_bytes(words: torch.Tensor, total: int) -> bytes:
 
 
 def _assemble_checked(launch, overflow: torch.Tensor, n: int,
-                      cap_words: int):
+                      cap_words: int, rider: torch.Tensor | None = None):
     """:func:`_assemble`, raising :class:`TableRangeError` when a
     coefficient lies outside the Huffman tables: (stream words on the
-    device, image starts (B,) on the device, total bits)."""
-    stream, starts, total, table_over = _assemble(launch, overflow, n,
-                                                  cap_words)
+    device, image starts (B,) on the device, total bits, the value of
+    ``rider`` or ``None``)."""
+    stream, starts, total, table_over, ridden = _assemble(
+        launch, overflow, n, cap_words, rider)
     if table_over:
         raise TableRangeError()
-    return stream, starts, total
+    return stream, starts, total, ridden
 
 
 def _pull(stream: torch.Tensor, starts: torch.Tensor, total: int):
@@ -162,9 +147,11 @@ def _place_launch(packed: torch.Tensor, meta: torch.Tensor, nb: int):
 def place_words(packed: torch.Tensor, meta: torch.Tensor,
                 overflow: torch.Tensor, nb: int, cap_words: int):
     """``encode2``'s outputs -> the stream through ``place``, left on the
-    device, as :func:`_assemble` returns it."""
+    device: (stream words, image starts, total bits, whether a
+    coefficient lies outside the Huffman tables), as :func:`_assemble`
+    returns them."""
     return _assemble(_place_launch(packed, meta, nb), overflow,
-                     packed.shape[0], cap_words)
+                     packed.shape[0], cap_words)[:4]
 
 
 def place_stream(packed: torch.Tensor, meta: torch.Tensor,
@@ -173,7 +160,7 @@ def place_stream(packed: torch.Tensor, meta: torch.Tensor,
     (big-endian stream bytes up to the total's last byte, image starts
     (B,) int64, total bits).  Raises ``TableRangeError`` when a
     coefficient lies outside the Huffman tables."""
-    stream, starts, total = _assemble_checked(
+    stream, starts, total, _ = _assemble_checked(
         _place_launch(packed, meta, nb), overflow, packed.shape[0],
         cap_words)
     return (*_pull(stream, starts, total), total)
@@ -309,9 +296,11 @@ def compress_batch_device(
     with profiling.span("codec.encode.upload"):
         tables = CodecTables.build(quality, dev)
         blocks = transform.blockify(images.to(dev)).reshape(n, 64)
-    meta = None
+    meta = flagged = None
     if precision == transform.EXACT:
-        zz = exact_coefficients(blocks, quality, tables)
+        # the count of flagged blocks rides the status pull of the assembly
+        with profiling.span("codec.encode.transform") as stage:
+            zz, _, flagged = exact_transform(blocks, tables)
     with profiling.span("codec.encode.entropy"):
         if precision == transform.EXACT:
             packed, meta, overflow = encode2(zz, tables, nb, from_zz=True)
@@ -322,7 +311,10 @@ def compress_batch_device(
 
     launch = (_place_launch(packed, meta, nb) if meta is not None
               else lambda cap: stitch(words, bits, nb, cap))
-    stream, starts, total = _assemble_checked(launch, overflow, n, cap_words)
+    stream, starts, total, flagged = _assemble_checked(
+        launch, overflow, n, cap_words, flagged)
+    if flagged is not None:
+        stage.set(flagged=flagged)
     with profiling.span("codec.encode.pull"):
         raw, starts = _pull(stream, starts, total)
         off_all = (meta[0].cpu().numpy().astype(np.int64) if block_index

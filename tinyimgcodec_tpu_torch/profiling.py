@@ -25,13 +25,14 @@ The spans and their counts (``README.md``, "Tracing the port"):
   ``host_entropy``, ``host_decoder``), ``codec.mesh.compress_batch``
   (``parallel/batch.py``);
 - encode stages (``pipeline.py``): ``codec.encode.upload``,
-  ``.transform``, ``.recompute`` (``flagged``: the blocks recomputed in
-  float64), ``.entropy``, ``.place`` (``retried``: 1 when the stream was
-  assembled again at the worst-case capacity), ``.pull``, ``.assemble``;
+  ``.transform`` (``flagged``: the tie-flagged blocks ``exact_transform``
+  settled on the device, read with the status of ``.place``), ``.entropy``,
+  ``.place`` (``retried``: 1 when the stream was assembled again at the
+  worst-case capacity), ``.pull``, ``.assemble``;
 - decode stages (``engine.py``): ``codec.decode.prepare``, ``.upload``,
-  ``.entropy``, ``.transform``, ``.recompute`` (``flagged``), ``.pull``,
-  ``.fallback`` (``images``: those the host decoder took),
-  ``.host_entropy``.
+  ``.entropy``, ``.transform``, ``.recompute`` (``flagged``: the blocks
+  recomputed in float64 on the host), ``.pull``, ``.fallback``
+  (``images``: those the host decoder took), ``.host_entropy``.
 
 The outermost span of a call takes a fresh call id, which every span
 nested in it records, with its parent's span id; a ``LocalMesh`` runs each
@@ -121,7 +122,8 @@ class _Span:
         self.counts = counts
 
     def set(self, **counts) -> None:
-        """Add or replace counts of this span (known once it has run)."""
+        """Add or replace counts of this span (known once it has run; after
+        it has closed too, since its record holds the same counts)."""
         self.counts.update(counts)
 
     def __enter__(self):

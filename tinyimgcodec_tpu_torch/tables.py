@@ -6,8 +6,9 @@ The codec has no weights.  What a decode needs besides the stream is
 - the fused (64, 64) float32 matrix of the fast transform (DCT basis x
   reciprocal quantization divisors, columns in zig-zag order) and its DC
   offset (the folded level shift);
-- the float64 8x8 DCT basis and the float64 reciprocal divisors of the
-  exact transform;
+- the float64 8x8 DCT basis, the float64 quantization divisors and their
+  reciprocals, of the exact transform (the reciprocals for its products,
+  the divisors for the blocks it settles in the oracle's arithmetic);
 - the Huffman symbol tables as ``code << 8 | length`` words (12 DC
   categories, 16 x 11 AC (run, size) pairs) and the 0..3-fold ZRL prefix
   left-aligned in two 32-bit words.
@@ -103,6 +104,7 @@ class CodecTables:
     dc_offset: float              # level-shift offset of the DC column
     dct_basis: torch.Tensor       # (8, 8) float64
     recip_divisors: torch.Tensor  # (8, 8) float64, 1 / divisor
+    divisors: torch.Tensor        # (8, 8) float64 quantization divisors
     dc_comb: torch.Tensor         # (12,) int32: code << 8 | length
     ac_comb: torch.Tensor         # (176,) int32, index run * 11 + size
     zrl_hi: torch.Tensor          # (4,) int32: z-fold ZRL, bits 63..32
@@ -114,10 +116,11 @@ class CodecTables:
         return self.encode_matrix.device
 
     @classmethod
-    def from_numpy(cls, encode_matrix, dc_offset, dct_basis, recip_divisors,
+    def from_numpy(cls, encode_matrix, dc_offset, dct_basis, divisors,
                    dc_comb, ac_comb, zrl_hi, zrl_lo,
                    device: str | torch.device = "cpu") -> "CodecTables":
         dev = torch.device(device)
+        divisors = np.asarray(divisors, np.float64)
 
         def t(a, dtype):
             return torch.from_numpy(
@@ -128,7 +131,8 @@ class CodecTables:
             encode_matrix=t(encode_matrix, np.float32).reshape(64, 64),
             dc_offset=float(np.float32(dc_offset)),
             dct_basis=t(dct_basis, np.float64).reshape(8, 8),
-            recip_divisors=t(recip_divisors, np.float64).reshape(8, 8),
+            recip_divisors=t(1.0 / divisors, np.float64).reshape(8, 8),
+            divisors=t(divisors, np.float64).reshape(8, 8),
             dc_comb=t(_bits_i32(dc_comb), np.int32),
             ac_comb=t(_bits_i32(ac_comb), np.int32),
             zrl_hi=t(_bits_i32(zrl_hi), np.int32),
@@ -164,7 +168,7 @@ def _with_symbols(quality: int, words: tuple, device: str) -> CodecTables:
     if np.any(off[1:] != 0.0):  # only the DC column has a basis sum
         raise ValueError("fast transform offset outside the DC column")
     return CodecTables.from_numpy(
-        m, off[0], dct_basis(), 1.0 / quant_divisors(quality), *words,
+        m, off[0], dct_basis(), quant_divisors(quality), *words,
         device=device,
     )
 

@@ -228,13 +228,14 @@ def encode_pass(pixels: torch.Tensor, tables: CodecTables, precision: str,
     only), ``encode2`` (from the pixels, or from the exact coefficients),
     ``place`` at ``cap`` words.  Returns (stream words (cap,) int32, image
     start bits (B,), total bits, capacity or table overflow, the
-    ``exact_transform`` tie flags (N,), empty in fast mode).  Without the
-    float64 host recompute of the flagged blocks, as in ``bench.py``."""
+    ``exact_transform`` tie flags (N,), empty in fast mode).  The exact
+    pass settles its flagged blocks inside ``exact_transform``, so its
+    bytes are the float64 oracle's (``bench.py``'s pass left them out)."""
     b, h, w = pixels.shape
     nb = (h // 8) * (w // 8)
     blocks = transform.blockify(pixels).reshape(b * nb, 64)
     if precision == transform.EXACT:
-        zz, flags = exact_transform.exact_transform(blocks, tables)
+        zz, flags, _ = exact_transform.exact_transform(blocks, tables)
         packed, meta, table_over = encode2.encode2(zz, tables, nb,
                                                    from_zz=True)
     else:
@@ -462,11 +463,13 @@ class Bench:
                            "the graph's streams")
             self.notes["cuda-fast/device"] = {"k": K_ENCODE}
         else:
+            if pass_streams(out, self.images.shape[1:], QUALITY) != (
+                    self.streams(transform.EXACT)):
+                raise BenchError("the exact graph's streams differ from "
+                                 "the oracle's bytes")
             self.notes["cuda-exact/device"] = {
                 "k": K_ENCODE,
-                "flagged_blocks": int((out[4] != 0).sum()),
-                "not_in_the_pass": "the float64 host recompute of the "
-                                   "flagged blocks"}
+                "flagged_blocks": int((out[4] != 0).sum())}
         return samples
 
     def cuda_4k_device(self) -> list[float]:
