@@ -38,13 +38,17 @@ def test_pad_to_blocks_equal(shape):
 
 
 def test_fast_encode_blocks_meets_the_tie_bar():
-    """float32 and order-dependent: the two backends sum in different
-    orders, so a coefficient may differ by one step -- on at most 1e-4 of
-    the coefficients, each within 1e-3 of a half-integer before rounding
-    (judged in float64); everything else is equal."""
+    """float32 and order-dependent: the port sums in the encode kernel's
+    ascending order, XLA in its own, so a coefficient may differ by one
+    step -- on at most 1e-4 of the coefficients, each within 1e-3 of a
+    half-integer before rounding (judged in float64); everything else is
+    equal.  64 images, so that 1e-4 of the coefficients is 26 of them and
+    not less than one."""
     quality = 50
-    imgs = np.stack([synthetic_image(64, 64, seed=s) for s in (21, 22)])
-    blocks = np.array(jtransform.blockify(imgs))  # (2, 64, 8, 8)
+    n = 64
+    imgs = np.stack([synthetic_image(64, 64, seed=s)
+                     for s in range(21, 21 + n)])
+    blocks = np.array(jtransform.blockify(imgs))  # (n, 64, 8, 8)
     theirs = np.asarray(
         jtransform.encode_blocks(blocks, quality, jtransform.FAST)
     )
@@ -56,7 +60,7 @@ def test_fast_encode_blocks_meets_the_tie_bar():
     assert diff.max() <= 1
     assert (diff != 0).sum() <= 1e-4 * diff.size
     m, off = jtransform._fast_encode_matrix(quality)
-    y = blocks.reshape(2, 64, 64).astype(np.float64) @ m.astype(np.float64)
+    y = blocks.reshape(n, 64, 64).astype(np.float64) @ m.astype(np.float64)
     y -= off.astype(np.float64)
     tie_dist = np.abs(y - np.floor(y) - 0.5)
     assert np.all(tie_dist[diff != 0] <= 1e-3)

@@ -56,7 +56,9 @@ def compress(
     """Grayscale image (H, W) -> compressed bytes.
 
     precision: "exact" (byte-identical to the float64 oracle) or "fast"
-    (float32 transform; rare rounding ties may differ).
+    (the float32 transform in the encode kernel's own order: bytes that
+    are the same on every device, and differ from exact mode's where a
+    float32 sum lands on the other side of a rounding tie).
     block_index: append the TICX block-offset trailer (default on).
     config: a validated CodecConfig; overrides the loose kwargs.
     An image of more than 16 Mi pixels is encoded in block ranges of one

@@ -23,10 +23,9 @@ stages a tile of 128 blocks in shared memory (from pixels the transform
 writes into it, so no coefficient matrix exists in device memory), codes
 every block once and copies the rows out 16 bytes a store.  It runs the
 same device code for the transform and the symbols as ``csrc/encode2.cu``.
-The plain version shares :func:`..encode2.block_slots` with
-``encode2_plain`` and agrees with the kernel bit for bit on ``from_zz``
-input; on pixel input the tie bar of the float32 transform applies, as
-for ``encode2``.
+The plain version shares :func:`..encode2.block_slots` and
+:func:`..encode2.fast_coefficients_plain` with ``encode2_plain`` and
+agrees with the kernel bit for bit on either input.
 """
 
 from __future__ import annotations

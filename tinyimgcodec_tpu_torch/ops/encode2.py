@@ -36,10 +36,10 @@ adds one small zero fill (the scan's state) and nothing else.
 
 The plain version below computes the same words with whole-tensor
 operations on int64 (torch has no 32-bit unsigned shifts on the CPU) and
-agrees with the kernel bit for bit on ``from_zz`` input.  On pixel input
-the two sum the float32 transform in different orders (the kernel pixel by
-pixel, the plain version through ``torch.matmul``), so a coefficient whose
-value before rounding sits on a tie may differ by one.
+agrees with the kernel bit for bit on either input.  The kernel's float32
+arithmetic is what fast mode's bytes are (:func:`fast_coefficients_plain`
+spells it out): they are the same on every device, and differ from exact
+mode's wherever a float32 sum lands on the other side of a rounding tie.
 """
 
 from __future__ import annotations
@@ -64,6 +64,8 @@ launches = 0  # times encode2() launched the CUDA kernels
 launches_by_card: dict[int, int] = {}  # the same count, by card index
 launches_by_input = {"pixels": 0, "zz": 0}  # the same count, by input form
 transform_launches = 0  # times fast_coefficients() launched its kernel
+# blocks a slice of the plain fast transform: its products take 16 MiB
+FAST_SLICE = 1024
 
 
 def _category(v: torch.Tensor) -> torch.Tensor:
@@ -88,11 +90,27 @@ def _as_i32(x: torch.Tensor) -> torch.Tensor:
 
 def fast_coefficients_plain(pixels: torch.Tensor,
                             tables: CodecTables) -> torch.Tensor:
-    """(N, 64) uint8 -> (64, N) int32: one float32 matrix product, the DC
-    level-shift offset, round half to even."""
-    y = pixels.to(torch.float32) @ tables.encode_matrix
-    y[:, 0] = y[:, 0] - tables.dc_offset
-    return torch.round(y).to(torch.int32).T.contiguous()
+    """(N, 64) uint8 -> (64, N) int32 in the kernel's float32 arithmetic,
+    which defines fast mode's coefficients: for each coefficient k,
+    ``acc = x[0] * M[0, k]``, then ``acc = acc + x[q] * M[q, k]`` for
+    q = 1..63 in ascending order, every product and every sum rounded to
+    float32 on its own (elementwise multiplies and adds: no matrix
+    product or fused operation, whose order or rounding is the library's);
+    then ``acc - dc_offset`` in float32 for k = 0 and round half to even."""
+    n = pixels.shape[0]
+    dev = pixels.device
+    m = tables.encode_matrix
+    off = torch.tensor(tables.dc_offset, dtype=torch.float32, device=dev)
+    out = torch.empty((64, n), dtype=torch.int32, device=dev)
+    for s in range(0, n, FAST_SLICE):
+        x = pixels[s:s + FAST_SLICE].to(torch.float32)
+        prod = torch.mul(x[:, :, None], m)  # [block, pixel, coefficient]
+        acc = prod[:, 0].clone()
+        for q in range(1, 64):
+            acc = torch.add(acc, prod[:, q])
+        acc[:, 0] = torch.sub(acc[:, 0], off)
+        out[:, s:s + FAST_SLICE] = torch.round(acc).to(torch.int32).T
+    return out
 
 
 def block_slots(zz: torch.Tensor, tables: CodecTables, nb: int,

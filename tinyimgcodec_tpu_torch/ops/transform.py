@@ -11,9 +11,12 @@ elementwise passes -- and is what the decode path runs on the card.
 
 Two precisions, as in the JAX package:
 
-- ``"fast"``: one float32 (64, 64) matrix product and ``torch.round``
-  (round-half-to-even, like ``jnp.round``).  Order-dependent: a value that
-  sits on a rounding tie may come out one step away on another backend.
+- ``"fast"``: the fused float32 (64, 64) transform summed in the encode
+  kernel's own order, one rounding a product and a sum, and ``torch.round``
+  (round-half-to-even, like ``jnp.round``): ``encode2``'s
+  ``fast_coefficients_plain``, the definition of fast mode's coefficients
+  on every device.  The JAX package sums in XLA's order, so a value that
+  sits on a rounding tie may come out one step away there.
 - ``"exact"``: float64 arithmetic (the card has FP64 units, so the JAX
   package's double-float emulation is not needed) with a per-block flag
   for roundings within 1e-9 of a tie.
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from ..tables import CodecTables, DecodeTables
+from .encode2 import fast_coefficients_plain
 
 FAST = "fast"
 EXACT = "exact"
@@ -74,10 +78,9 @@ def encode_blocks(
         tables = CodecTables.build(quality, blocks.device)
     lead = blocks.shape[:-2]
     if precision == FAST:
-        x = blocks.reshape(*lead, 64).to(torch.float32)
-        y = x @ tables.encode_matrix
-        y[..., 0] = y[..., 0] - tables.dc_offset
-        zz = torch.round(y).to(torch.int32)
+        zz = fast_coefficients_plain(
+            blocks.reshape(-1, 64).to(torch.uint8), tables
+        ).T.reshape(*lead, 64)
         flags = torch.zeros(lead, dtype=torch.bool, device=blocks.device)
     elif precision == EXACT:
         from .exact_transform import exact_transform_plain

@@ -301,13 +301,16 @@ def compress_batch_device(
         # the count of flagged blocks rides the status pull of the assembly
         with profiling.span("codec.encode.transform") as stage:
             zz, _, flagged = exact_transform(blocks, tables)
-    with profiling.span("codec.encode.entropy"):
+    with profiling.span("codec.encode.entropy") as entropy:
         if precision == transform.EXACT:
             packed, meta, overflow = encode2(zz, tables, nb, from_zz=True)
-        elif version == "v2":
-            packed, meta, overflow = encode2(blocks, tables, nb)
         else:
-            words, bits, overflow = encode1(blocks, tables, nb)
+            # fast: the entropy kernel runs the transform on the pixels
+            entropy.set(from_pixels=n)
+            if version == "v2":
+                packed, meta, overflow = encode2(blocks, tables, nb)
+            else:
+                words, bits, overflow = encode1(blocks, tables, nb)
 
     launch = (_place_launch(packed, meta, nb) if meta is not None
               else lambda cap: stitch(words, bits, nb, cap))

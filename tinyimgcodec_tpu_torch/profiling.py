@@ -26,8 +26,9 @@ The spans and their counts (``README.md``, "Tracing the port"):
   (``parallel/batch.py``);
 - encode stages (``pipeline.py``): ``codec.encode.upload``,
   ``.transform`` (``flagged``: the tie-flagged blocks ``exact_transform``
-  settled on the device, read with the status of ``.place``), ``.entropy``,
-  ``.place`` (``retried``: 1 when the stream was assembled again at the
+  settled on the device, read with the status of ``.place``), ``.entropy``
+  (``from_pixels``: the blocks the entropy kernel transformed from pixels
+  itself, fast mode), ``.place`` (``retried``: 1 when the stream was assembled again at the
   worst-case capacity), ``.pull``, ``.assemble``;
 - decode stages (``engine.py``): ``codec.decode.prepare``, ``.upload``,
   ``.entropy``, ``.transform``, ``.recompute`` (``flagged``: the blocks
