@@ -177,7 +177,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     scripts = [str(repo / "scripts" / f"{name}.py")
                for name in ("torch_hw_adversarial", "torch_hw_quality_sweep",
                             "torch_scaling_bench", "torch_multicard",
-                            "torch_host_entropy_split")]
+                            "torch_host_entropy_split", "torch_prepare_time")]
     scripts.append(str(repo / "torch_bench.py"))
     code = (
         "import sys, numpy as np\n"

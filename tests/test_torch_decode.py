@@ -208,8 +208,8 @@ def test_a_batch_over_the_block_bound_is_decoded_in_sub_batches(
         mut = bytearray(STREAMS[2])
         mut[pos] ^= 0xFF
         prep = ted.prepare_batch([bytes(mut)])
-        args = [torch.from_numpy(prep["words"].view(np.int32))] + [
-            torch.from_numpy(prep[k]) for k in tengine._CHUNK_KEYS]
+        args = [torch.from_numpy(prep["words"].view(np.int32)),
+                *torch.from_numpy(ted.chunk_table(prep))[:5]]
         _, ok = ted.entropy_decode_chunks_plain(
             *args, 64, ttables.DecodeTables.build(50, device="cpu"))
         if not bool(ok.all()):

@@ -38,6 +38,19 @@ def _streams(quality=50, shape=(64, 64), stride=16, auto=False, seeds=(1, 2)):
     ]
 
 
+def _mixed_streams(n=9):
+    """``n`` or more streams of one shape and quality whose payloads'
+    lengths take every residue mod 4, so every padding width occurs."""
+    streams, seen = [], set()
+    for seed in range(20, 80):
+        s = _streams(seeds=(seed,))[0]
+        streams.append(s)
+        seen.add(tcontainer.parse_block_index(s, 64)[2] % 4)
+        if len(streams) >= n and len(seen) == 4:
+            return streams
+    raise AssertionError("no seed range gives all four residues")
+
+
 @functools.cache
 def _jax_fn(nb_total, stride, custom):
     def run(w, s, b, bb, lo, hi, *tabs):
@@ -95,11 +108,12 @@ def _assert_prep_equal(mine, theirs):
     [dict(), dict(quality=95), dict(shape=(60, 52), stride=64),
      dict(stride=8), dict(auto=True, seeds=(3, 3)),
      dict(auto=True, seeds=(3, 4)),  # two tables: not one batch
-     dict(seeds=(5,))],
-    ids=["q50", "q95", "odd", "stride8", "auto", "auto-mixed", "single"],
+     dict(seeds=(5,)), "mixed-sizes"],
+    ids=["q50", "q95", "odd", "stride8", "auto", "auto-mixed", "single",
+         "mixed-sizes"],
 )
 def test_prepare_batch_equals_jax_field_by_field(kw):
-    streams = _streams(**kw)
+    streams = _mixed_streams() if kw == "mixed-sizes" else _streams(**kw)
     _assert_prep_equal(ted.prepare_batch(streams), jed.prepare_batch(streams))
 
 
@@ -117,6 +131,55 @@ def test_prepare_batch_admission_rules():
         assert ted.prepare_batch(bad) is None
         if bad:
             assert jed.prepare_batch(bad) is None
+    # each trailer refusal in a stream after the first: the second of
+    # nine, and the last
+    batch = _mixed_streams()
+    assert ted.prepare_batch(batch) is not None
+    for fix in _TRAILER_REFUSALS:
+        for i in (1, len(batch) - 1):
+            bad = list(batch)
+            bad[i] = _with_trailer(batch[i], fix)
+            assert ted.prepare_batch(bad) is None, (fix.__name__, i)
+            assert jed.prepare_batch(bad) is None, (fix.__name__, i)
+
+
+def _with_trailer(data: bytes, fix) -> bytes:
+    """``data`` with its TICX trailer rewritten after ``fix(off, fields,
+    payload_bits)`` edits the offsets ((n,) int64) and the fields (a dict
+    of ``lg_stride`` and ``n``; the first ``n`` offsets are written)."""
+    body_len = struct.unpack_from("<I", data, len(data) - 8)[0]
+    start = len(data) - 8 - body_len
+    _, lg_stride, _, n = struct.unpack_from("<BBHI", data, start)
+    off = np.frombuffer(data, "<u4", n, start + 8).astype(np.int64)
+    fields = {"lg_stride": lg_stride, "n": n}
+    fix(off, fields, (start - 16) * 8)
+    body = struct.pack("<BBHI", 1, fields["lg_stride"], 0, fields["n"])
+    body += off[:fields["n"]].astype("<u4").tobytes()
+    return data[:start] + body + struct.pack("<I", len(body)) + b"TICX"
+
+
+def _offsets_out_of_order(off, fields, payload_bits):
+    off[2] = off[1]
+
+
+def _first_offset_not_0(off, fields, payload_bits):
+    off[0] = 1
+
+
+def _offset_past_the_payload(off, fields, payload_bits):
+    off[-1] = payload_bits
+
+
+def _bad_stride(off, fields, payload_bits):
+    fields["lg_stride"] += 1
+
+
+def _bad_count(off, fields, payload_bits):
+    fields["n"] -= 1
+
+
+_TRAILER_REFUSALS = (_offsets_out_of_order, _first_offset_not_0,
+                     _offset_past_the_payload, _bad_stride, _bad_count)
 
 
 def test_prepare_batch_rejects_a_trailer_offset_past_the_custom_payload():
@@ -144,15 +207,19 @@ def test_prepare_batch_rejects_a_trailer_offset_past_the_custom_payload():
     [dict(), dict(shape=(60, 52), stride=64), dict(stride=8),
      dict(shape=(8, 8), stride=1, seeds=(1, 2, 3)),
      dict(shape=(40, 24), stride=4, seeds=(4, 5, 6)),
-     dict(auto=True, seeds=(3, 3)), "corrupt-trailer"],
-    ids=["q50", "odd", "stride8", "one-block-images", "ragged-last-chunk", "auto",
-         "corrupt-trailer"],
+     dict(auto=True, seeds=(3, 3)), "corrupt-trailer", "mixed-sizes"],
+    ids=["q50", "odd", "stride8", "one-block-images", "ragged-last-chunk",
+         "auto", "corrupt-trailer", "mixed-sizes"],
 )
 def test_prepare_batch_chunks_tile_the_blocks(kw):
     """The chunks cover every block once: chunk k begins where chunk k - 1
     ends, from block 0 to ``nb_total``, every chunk non-empty -- also when
-    a trailer's offsets are garbage (they move ``chunk_start`` only)."""
-    if kw == "corrupt-trailer":
+    a trailer's offsets are garbage (they move ``chunk_start`` only).  The
+    six chunk arrays are the int32 rows of one C-contiguous (6, C) table,
+    in ``CHUNK_KEYS`` order."""
+    if kw == "mixed-sizes":
+        streams = _mixed_streams()
+    elif kw == "corrupt-trailer":
         streams = _streams()
         data = bytearray(streams[0])
         start = tcontainer.parse_block_index(streams[0], 64)[2]
@@ -169,6 +236,14 @@ def test_prepare_batch_chunks_tile_the_blocks(kw):
     assert np.array_equal(base[1:], base[:-1] + blocks[:-1])
     assert base[-1] + blocks[-1] == prep["nb_total"]
     assert prep["nb_total"] == len(streams) * prep["nb_per_image"]
+    table = ted.chunk_table(prep)
+    c = len(prep["chunk_start"])
+    assert table.shape == (6, c) and table.dtype == np.int32
+    assert table.flags.c_contiguous
+    for row, k in enumerate(ted.CHUNK_KEYS):
+        assert prep[k].dtype == np.int32 and prep[k].shape == (c,)
+        assert prep[k].base is table
+        assert prep[k].ctypes.data == table[row].ctypes.data
 
 
 def test_launch_shape_is_a_function_of_the_sizes_alone():

@@ -151,3 +151,16 @@ def test_benchmark_harness_small(tmp_path):
     assert all(r["ratio"] > 1 for r in rows)
     host = bm.run_corpus("host", str(tmp_path / "h.csv"), limit=1)
     assert [r["ratio"] for r in rows] == [r["ratio"] for r in host]
+
+
+def test_prepare_time_script_small():
+    """``scripts/torch_prepare_time.py`` at a tiny size: one JSON line with
+    the streams, their chunks and the call times."""
+    r = subprocess.run(
+        [sys.executable, "scripts/torch_prepare_time.py", "--calls", "5",
+         "--images", "3", "--size", "64"],
+        capture_output=True, text=True, cwd=REPO, timeout=300)
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert (out["streams"], out["chunks"], out["calls"]) == (3, 3, 5)
+    assert 0 < out["min_ms"] <= out["median_ms"]

@@ -13,6 +13,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from tinyimgcodec_tpu_torch import api, profiling
+from tinyimgcodec_tpu_torch import container as tcontainer
 from tinyimgcodec_tpu_torch.engine import Engine
 from tinyimgcodec_tpu_torch.ops import transform
 from tinyimgcodec_tpu_torch.ops.exact_transform import exact_transform
@@ -121,6 +122,22 @@ def test_decode_spans_count_each_leg_as_decode_stats(block_index):
         f"codec.decode.{s}" for s in stages}
     assert all(r.call_id == call.call_id for r in recs)
     assert "flagged" in _one(recs, "codec.decode.recompute").counts
+
+
+@pytest.mark.parametrize("custom", [False, True],
+                         ids=["standard_table", "custom_table"])
+def test_prepare_counts_the_streams_and_the_payloads_it_realigned(custom):
+    images = _images(n=3)
+    if custom:  # one image three times: one table for the batch
+        streams = [tcontainer.compress(images[0], 50, True, block_index=True)
+                   ] * 3
+    else:
+        streams = api.compress_batch(images, block_index=True, device="cpu")
+    _, recs, _ = _traced(lambda: api.decompress_batch(streams,
+                                                      device="cpu"))
+    assert _one(recs, "codec.decompress_batch").counts["kernel"] == 3
+    assert _one(recs, "codec.decode.prepare").counts == {
+        "streams": 3, "realigned": 3 if custom else 0}
 
 
 def test_a_local_mesh_records_each_shard_in_the_callers_call():

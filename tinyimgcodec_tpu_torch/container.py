@@ -70,14 +70,14 @@ def make_block_index(
     return body + struct.pack("<I", len(body)) + INDEX_MAGIC
 
 
-def parse_block_index(data: bytes, nblocks: int):
-    """Detect + validate a TICX trailer.
+def index_fields(data: bytes, nblocks: int):
+    """A TICX trailer's fixed fields, checked; its offsets are not read.
 
-    Returns (chunk_bit_offsets, stride, payload_end_byte) or None.  The
-    structural checks (exact length bookkeeping, monotone in-range
-    offsets, matching chunk count) make an accidental payload collision
-    with the magic effectively impossible; any inconsistency degrades to
-    index-less serial decode.
+    Returns ``(start, stride, n)``: the trailer's first byte (the
+    payload's end), the blocks a chunk and the count of chunk offsets; or
+    None when there is no trailer, or its lengths, version, reserved field
+    or chunk count do not fit ``nblocks``.  :func:`index_offsets_valid`
+    checks the offsets themselves.
     """
     if len(data) < HEADER_BYTES + 16 or data[-4:] != INDEX_MAGIC:
         return None
@@ -89,16 +89,36 @@ def parse_block_index(data: bytes, nblocks: int):
     if version != 1 or reserved != 0 or body_len != 8 + 4 * n:
         return None
     stride = 1 << lg_stride
-    if n != -(-nblocks // stride):
+    if n == 0 or n != -(-nblocks // stride):
         return None
+    return start, stride, n
+
+
+def index_offsets_valid(off: np.ndarray, payload_bits) -> bool:
+    """Whether every row of ``off`` ((B, n) int64 chunk bit offsets, one
+    stream a row) starts at 0, rises strictly and ends before its
+    stream's ``payload_bits`` (an int, or a (B,) array)."""
+    return bool((off[:, 0] == 0).all()
+                and (off[:, 1:] > off[:, :-1]).all()
+                and (off[:, -1] < payload_bits).all())
+
+
+def parse_block_index(data: bytes, nblocks: int):
+    """Detect + validate a TICX trailer.
+
+    Returns (chunk_bit_offsets, stride, payload_end_byte) or None.  The
+    structural checks (exact length bookkeeping, monotone in-range
+    offsets, matching chunk count) make an accidental payload collision
+    with the magic effectively impossible; any inconsistency degrades to
+    index-less serial decode.
+    """
+    fields = index_fields(data, nblocks)
+    if fields is None:
+        return None
+    start, stride, n = fields
     off = np.frombuffer(data, dtype="<u4", count=n, offset=start + 8)
     off = off.astype(np.int64)
-    payload_bits = (start - HEADER_BYTES) * 8
-    if n == 0 or off[0] != 0:
-        return None
-    if n > 1 and np.any(np.diff(off) <= 0):
-        return None
-    if off[-1] >= payload_bits:
+    if not index_offsets_valid(off[None], (start - HEADER_BYTES) * 8):
         return None
     return off, stride, start
 

@@ -58,15 +58,14 @@ from .huffman import (
 from .ops import transform
 from .ops.encode1 import BLOCK_WORDS, encode1
 from .ops.encode2 import fast_coefficients
-from .ops.entropy_decode import entropy_decode_chunks, prepare_batch
+from .ops.entropy_decode import (
+    chunk_table, entropy_decode_chunks, prepare_batch,
+)
 from .parallel import tiled
 from .pipeline import (
     TableRangeError, compress_batch_device, exact_coefficients, stream_bytes,
 )
 from .tables import CodecTables, DecodeTables, dequant_multipliers
-
-_CHUNK_KEYS = ("chunk_start", "chunk_blocks", "chunk_block_base",
-               "chunk_end_lo", "chunk_end_hi")
 
 # The most blocks one decode launch takes: its coefficient output is
 # indexed in int32 (nb_total * 64 < 2**31, ops/entropy_decode.py).
@@ -373,13 +372,17 @@ class Engine:
         per = MAX_DECODE_BLOCKS // (-(-h // 8) * -(-w // 8))
         if per < 1:
             return None
-        with profiling.span("codec.decode.prepare"):
-            preps = [prepare_batch(streams[i:i + per])
-                     for i in range(0, len(streams), per)]
+        batches = [streams[i:i + per] for i in range(0, len(streams), per)]
+        with profiling.span("codec.decode.prepare") as stage:
+            preps = [prepare_batch(part) for part in batches]
+            # custom-table payloads are realigned to a byte, one by one
+            stage.set(streams=len(streams), realigned=sum(
+                len(part) for part, prep in zip(batches, preps)
+                if prep is not None and prep["tables"] is not None))
         if any(p is None for p in preps):
             return None
-        parts = [self._decode_prepared(prep, streams[k * per:(k + 1) * per])
-                 for k, prep in enumerate(preps)]
+        parts = [self._decode_prepared(prep, part)
+                 for prep, part in zip(preps, batches)]
         # one sub-batch (the rule) is returned as it is: a copy of its
         # pixels into fresh memory costs more than the decode kernel
         return parts[0] if len(parts) == 1 else np.concatenate(parts)
@@ -393,10 +396,11 @@ class Engine:
             tables = DecodeTables.build(quality, scaled, dev,
                                         huffman=prep["tables"])
             words = torch.from_numpy(prep["words"].view(np.int32)).to(dev)
-            chunks = [torch.from_numpy(prep[k]).to(dev) for k in _CHUNK_KEYS]
+            # the chunk arrays in one copy: rows of one (6, C) table
+            chunks = torch.from_numpy(chunk_table(prep)).to(dev)
         with profiling.span("codec.decode.entropy"):
             zz, ok = entropy_decode_chunks(
-                words, *chunks, prep["nb_total"], tables)
+                words, *chunks[:5], prep["nb_total"], tables)
         imgs = self._pixels(
             zz.reshape(len(streams), prep["nb_per_image"], 64), h, w,
             quality, scaled, tables,

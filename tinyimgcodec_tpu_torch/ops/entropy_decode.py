@@ -7,7 +7,8 @@ module decodes all chunks of a whole batch at once on the device.
 
 Host half (NumPy only): :func:`canonical_tables` (admission check of a
 stream's own Huffman table), :func:`prepare_batch` (streams -> payload
-words and chunk arrays, or ``None`` when the batch cannot take this path).
+words and chunk arrays, or ``None`` when the batch cannot take this path),
+:func:`chunk_table` (the one array that holds the chunk arrays).
 
 Device half: :func:`entropy_decode_chunks` -> ``(zz (nb_total, 64) int32
 zig-zag coefficients with the DPCM'd DC in column 0, ok (C,) bool)``.  On
@@ -40,6 +41,7 @@ the blocks of a chunk that is not ``ok``.
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import numpy as np
 import torch
@@ -63,6 +65,10 @@ launches_by_card: dict[int, int] = {}  # the same count, by card index
 CHUNKS_PER_WARP = 8
 WARPS_PER_CTA = 4
 MAX_STAGE_WORDS = 40960   # 160 KB of the 227 KB a CTA may use
+
+# the chunk arrays of a prepared batch, in the row order of its chunk table
+CHUNK_KEYS = ("chunk_start", "chunk_blocks", "chunk_block_base",
+              "chunk_end_lo", "chunk_end_hi", "chunk_img")
 
 
 # ------------------------------------------------------------- host half
@@ -152,10 +158,18 @@ def prepare_batch(streams: list[bytes]):
     off-byte); TICX offsets are payload-relative in both layouts, so the
     chunk arithmetic is the same.
 
-    The chunks tile the blocks: ``chunk_block_base`` and ``chunk_blocks``
-    come from the stride alone, never from a stream's trailer offsets, so
-    chunk ``k`` begins where chunk ``k - 1`` ends, the first at block 0
-    and the last ending at ``nb_total``, whatever the streams hold.
+    The six chunk arrays (:data:`CHUNK_KEYS`) are the rows of one
+    C-contiguous (6, C) int32 array, :func:`chunk_table`, which one copy
+    uploads.  The chunks tile the blocks: ``chunk_block_base`` and
+    ``chunk_blocks`` come from the stride alone, never from a stream's
+    trailer offsets, so chunk ``k`` begins where chunk ``k - 1`` ends, the
+    first at block 0 and the last ending at ``nb_total``, whatever the
+    streams hold.
+
+    Per stream only the header and the trailer's fixed fields are read,
+    as Python integers (and a dynamic table, and its payload realigned);
+    the offsets are read, checked and turned into chunks once for the
+    whole batch, as (B, n) arrays.
     """
     from .. import container
     from ..bitstream import BitReader, bits_to_bytes
@@ -167,38 +181,36 @@ def prepare_batch(streams: list[bytes]):
 
     if not streams:
         return None
-    metas = []
-    h0 = None
-    tables0 = None
-    tabs0 = None
+    key0 = stride0 = tables0 = tabs0 = None
+    ends, true_bits, cursors = [], [], []
     for data in streams:
-        try:
-            h, w, q, flag = container.parse_header(data)
-        except Exception:
+        if len(data) < HEADER_BYTES:
             return None
-        if h0 is None:
-            h0 = (h, w, q)
-        elif (h, w, q) != h0:
+        key = struct.unpack_from("<IIII", data)  # height, width, q, flag
+        if key0 is None:
+            key0 = key
+            nb = -(-key[0] // 8) * -(-key[1] // 8)
+        elif key != key0:  # uniform shape, quality and flags
             return None
-        nb = -(-h // 8) * -(-w // 8)
-        idx = container.parse_block_index(data, nb)
-        if idx is None:
+        fields = container.index_fields(data, nb)
+        if fields is None:
             return None
-        off, stride, pay_end = idx
-        if len(off) == 1 and stride > 1 << 31:
+        start, stride, n = fields
+        if n == 1 and stride > 1 << 31:
             # one chunk holds the whole image, whatever the stride; one
             # past int32 (a corrupt byte may say 2**255, which no int64
             # holds) is taken as the image's block count
             stride = nb
-        if flag & FLAG_CUSTOM_TABLE:
+        if stride0 is None:
+            stride0 = stride
+        elif stride != stride0:  # one stride, so one chunk count
+            return None
+        if key[3] & FLAG_CUSTOM_TABLE:
             try:
                 reader = BitReader(data)
                 reader.seek(HEADER_BYTES * 8)
                 tables = container.read_huffman_table(reader)
             except Exception:
-                return None
-            payload_off = reader.tell()
-            if payload_off >= pay_end * 8:
                 return None
             if tables0 is None:
                 tables0 = tables
@@ -209,78 +221,79 @@ def prepare_batch(streams: list[bytes]):
                     return None
             elif tables != tables0:  # one table per batch
                 return None
-            pay_bits_true = pay_end * 8 - payload_off
-            # parse_block_index's off[-1] bound over-counts by the
-            # table-segment bits on custom streams; re-validate against
-            # the true payload length so that a corrupt trailer goes to
-            # the serial host cursor instead of mis-chunking
-            if off[-1] >= pay_bits_true:
-                return None
-            payload = bits_to_bytes(reader._bits[payload_off:pay_end * 8])
+            cursors.append(reader)
+            true_bits.append(start * 8 - reader.tell())
         else:
-            payload = data[HEADER_BYTES:pay_end]
-            pay_bits_true = len(payload) * 8
-        metas.append((payload, nb, off, stride, pay_bits_true, flag))
-    stride0 = metas[0][3]
-    if any(m[3] != stride0 for m in metas):
-        return None
-    if any(m[5] != metas[0][5] for m in metas):  # uniform flags
-        return None
+            true_bits.append((start - HEADER_BYTES) * 8)
+        ends.append(start)
 
-    word_chunks = []
-    starts, blocks, bases, end_lo, end_hi, img_of = [], [], [], [], [], []
-    base_bits = 0
-    blk_base = 0
-    for i, (payload, nb, off, stride, pay_bits_true, flag) in enumerate(
-        metas
-    ):
-        pay_bits = len(payload) * 8
-        pad = (-len(payload)) % 4
-        word_chunks.append(payload + b"\x00" * pad)
-        n_chunks = len(off)
-        g = base_bits + off.astype(np.int64)
-        starts.append(g)
-        nb_in = np.full(n_chunks, stride, np.int64)
-        nb_in[-1] = nb - stride * (n_chunks - 1)
-        blocks.append(nb_in)
-        bases.append(blk_base + np.arange(n_chunks, dtype=np.int64)
-                     * stride)
-        lo = np.empty(n_chunks, np.int64)
-        hi = np.empty(n_chunks, np.int64)
-        lo[:-1] = g[1:]
-        hi[:-1] = g[1:]
-        # the final cursor must land in the writer's <= 7-bit byte-align
-        # pad window, measured from the true payload bit length (for
-        # realigned dynamic-table payloads the byte padding of the
-        # realignment is not part of the stream)
-        lo[-1] = base_bits + max(pay_bits_true - 7, 0)
-        hi[-1] = base_bits + pay_bits_true
-        end_lo.append(lo)
-        end_hi.append(hi)
-        img_of.append(np.full(n_chunks, i, np.int64))
-        base_bits += pay_bits + pad * 8
-        blk_base += nb
-    if base_bits >= MAX_PAYLOAD_BITS:  # int32 chunk offsets
+    b = len(streams)
+    true_bits = np.array(true_bits, np.int64)
+    off = np.frombuffer(b"".join([
+        memoryview(data)[start + 8:start + 8 + 4 * n]
+        for data, start in zip(streams, ends)
+    ]), "<u4").reshape(b, n).astype(np.int64)
+    # measured against the true payload: on a custom stream the trailer's
+    # own bound over-counts by the table segment, and a corrupt trailer
+    # must go to the serial host cursor instead of mis-chunking
+    if not container.index_offsets_valid(off, true_bits):
         return None
+    # each payload's bytes, zero-padded to a whole word
+    words_in = (true_bits + 31) // 32
+    if 32 * int(words_in.sum()) >= MAX_PAYLOAD_BITS:  # int32 chunk offsets
+        return None
+    base = 32 * (np.cumsum(words_in) - words_in)
 
-    raw = b"".join(word_chunks)
-    words = np.frombuffer(raw, dtype=">u4").astype(np.uint32)
+    table = np.empty((6, b, n), np.int64)
+    start_, blocks, block_base, end_lo, end_hi, img = table
+    np.add(base[:, None], off, out=start_)
+    blocks[:] = stride0
+    blocks[:, -1] = nb - stride0 * (n - 1)
+    block_base[:] = nb * np.arange(b)[:, None] + stride0 * np.arange(n)
+    end_lo[:, :-1] = end_hi[:, :-1] = start_[:, 1:]
+    # the final cursor must land in the writer's <= 7-bit byte-align pad
+    # window, measured from the true payload bit length (for realigned
+    # dynamic-table payloads the byte padding of the realignment is not
+    # part of the stream)
+    end_lo[:, -1] = base + np.maximum(true_bits - 7, 0)
+    end_hi[:, -1] = base + true_bits
+    img[:] = np.arange(b)[:, None]
+    table = table.reshape(6, b * n).astype(np.int32)
+
+    pieces = []
+    for i, (data, start) in enumerate(zip(streams, ends)):
+        if cursors:  # realigned to a byte, past the table segment
+            payload = bits_to_bytes(
+                cursors[i]._bits[cursors[i].tell():start * 8])
+        else:
+            payload = memoryview(data)[HEADER_BYTES:start]
+        pieces += (payload, bytes(-len(payload) % 4))
+    # the big-endian words in the host's (little-endian) order, swapped
+    # in the one buffer the join fills: a second buffer for the swap, or
+    # numpy's conversion from ">u4", costs more
+    words = np.frombuffer(bytearray().join(pieces), "<u4")
+    words.byteswap(inplace=True)
+    flag = key0[3]
     return {
         "words": words,
-        "chunk_start": np.concatenate(starts).astype(np.int32),
-        "chunk_blocks": np.concatenate(blocks).astype(np.int32),
-        "chunk_block_base": np.concatenate(bases).astype(np.int32),
-        "chunk_end_lo": np.concatenate(end_lo).astype(np.int32),
-        "chunk_end_hi": np.concatenate(end_hi).astype(np.int32),
-        "chunk_img": np.concatenate(img_of).astype(np.int32),
-        "nb_total": blk_base,
-        "nb_per_image": metas[0][1],
+        **dict(zip(CHUNK_KEYS, table)),
+        "nb_total": b * nb,
+        "nb_per_image": nb,
         "stride": int(stride0),
-        "shape": h0,
-        "scaled_dct": bool(metas[0][5] & FLAG_SCALED_DCT)
-        and not (metas[0][5] & FLAG_CUSTOM_TABLE),
+        "shape": key0[:3],
+        "scaled_dct": bool(flag & FLAG_SCALED_DCT)
+        and not (flag & FLAG_CUSTOM_TABLE),
         "tables": tabs0,
     }
+
+
+def chunk_table(prep: dict) -> np.ndarray:
+    """The (6, C) int32 array whose rows are ``prep``'s chunk arrays, in
+    :data:`CHUNK_KEYS` order: the chunk table that one copy uploads."""
+    table = prep[CHUNK_KEYS[0]].base
+    if any(prep[k].base is not table for k in CHUNK_KEYS):
+        raise ValueError("the chunk arrays are not rows of one table")
+    return table
 
 
 # ----------------------------------------------------------- device half
