@@ -1771,20 +1771,20 @@ def encode_stages(img: np.ndarray, reps: int) -> dict:
     time: each stage alone, host clock around a synchronised call."""
     nb = (img.shape[0] // 8) * (img.shape[1] // 8)
     tables = CodecTables.build(50, DEV)
-    ranges = tiled.sub_ranges(0, nb)
+    ranges = pipeline.sub_ranges(0, nb)
 
     def upload():
-        return [tiled.range_blocks(img, a, b, DEV) for a, b in ranges]
+        return [pipeline.range_blocks(img, a, b, DEV) for a, b in ranges]
 
     blocks = upload()
     zz_list = [exact_coefficients(bl, tables) for bl in blocks]
     flagged = sum(int(exact_transform.exact_transform(bl, tables)[1].sum())
                   for bl in blocks)
-    segments, offsets, _ = tiled.encode_ranges(zz_list, tables, None, 4.0,
-                                               with_offsets=True)
+    segments, offsets, _ = pipeline.encode_ranges(zz_list, tables, None,
+                                                  4.0, with_offsets=True)
 
     def concat():
-        words, bits = tiled.concat_bits(
+        words, bits = pipeline.concat_bits(
             [(w.cpu(), b) for w, b in segments], torch.device("cpu"))
         return pipeline.stream_bytes(words, bits)
 
@@ -1795,10 +1795,11 @@ def encode_stages(img: np.ndarray, reps: int) -> dict:
             reps),
         "exact_coefficients_ms": host_ms(lambda: [
             exact_coefficients(bl, tables) for bl in blocks], reps),
-        "encode_ranges_ms": host_ms(lambda: tiled.encode_ranges(
+        "encode_ranges_ms": host_ms(lambda: pipeline.encode_ranges(
             zz_list, tables, None, 4.0), reps),
-        "encode_ranges_with_offsets_ms": host_ms(lambda: tiled.encode_ranges(
-            zz_list, tables, None, 4.0, with_offsets=True), reps),
+        "encode_ranges_with_offsets_ms": host_ms(
+            lambda: pipeline.encode_ranges(zz_list, tables, None, 4.0,
+                                           with_offsets=True), reps),
         "pull_and_concat_on_host_ms": host_ms(concat, reps),
         "block_index_ms": host_ms(
             lambda: container.make_block_index(offsets), reps),
@@ -1828,7 +1829,7 @@ def _tiled_checks() -> dict:
     h, w = (72, 136) if REHEARSE else (4320, 7680)
     img = seeded_image(h, w, 8)
     nb = (h // 8) * (w // 8)
-    k = len(tiled.sub_ranges(0, nb))
+    k = len(pipeline.sub_ranges(0, nb))
     if k < 2:
         fail(f"tiled: {h}x{w} is {k} block range, not two")
     per_path: dict = {}
@@ -1882,7 +1883,7 @@ def _tiled_checks() -> dict:
     h2, w2 = (64, 104) if REHEARSE else (4096, 4104)
     img2 = seeded_image(h2, w2, 9)
     nb2 = (h2 // 8) * (w2 // 8)
-    k2 = len(tiled.sub_ranges(0, nb2))
+    k2 = len(pipeline.sub_ranges(0, nb2))
     if k2 < 2:
         fail(f"tiled: {h2}x{w2} is not over the limit")
     want = tiled_launches(k2, True)
@@ -1990,7 +1991,7 @@ def phase_encode_to_words(corpus: np.ndarray, exact: list[bytes],
     if REHEARSE:
         pipeline.MAX_PIXELS = 64 * 100  # as in ``phase_tiled``
     try:
-        k = len(tiled.sub_ranges(0, nb_big))
+        k = len(pipeline.sub_ranges(0, nb_big))
         t0 = time.perf_counter()
         for precision, want in (
                 ("exact", {"exact_transform": (k,), "encode1": (k,)}),
@@ -2163,7 +2164,7 @@ def phase_local_mesh(corpus: np.ndarray, big: dict, exact: list[bytes],
     one = make_mesh(1, device=DEV)
     image = big["image"]
     nb_big = (image.shape[0] // 8) * (image.shape[1] // 8)
-    k = sum(len(tiled.sub_ranges(*tiled.block_range(nb_big, 2, r)))
+    k = sum(len(pipeline.sub_ranges(*tiled.block_range(nb_big, 2, r)))
             for r in range(2))
     nb = (corpus.shape[1] // 8) * (corpus.shape[2] // 8)
     per_path: dict = {}
@@ -2861,8 +2862,6 @@ def auto_table_breakdown(img: np.ndarray, stage) -> None:
     time: the steps of ``Engine._compress_auto_table``, each timed alone
     with ``stage`` (host clock, synchronised, median)."""
     from tinyimgcodec_tpu_torch.bitstream import BitWriter, concat_bit_payload
-    from tinyimgcodec_tpu_torch.pipeline import place_stream
-
     quality = 50
     nb = img.size // 64
     tables = CodecTables.build(quality, DEV)
@@ -2881,7 +2880,13 @@ def auto_table_breakdown(img: np.ndarray, stage) -> None:
     spec = huffman.build_huffman_spec_from_counts(*counts)
     run_tables = CodecTables.from_spec(spec, quality, DEV)
     packed, meta, over = encode2.encode2(zz, run_tables, nb, from_zz=True)
-    payload, _, total = place_stream(packed, meta, over, nb, nb * 8)
+
+    def encode2_place(packed, meta, over):
+        words, _, total, _ = pipeline.place_words(packed, meta, over, nb,
+                                                  nb * 8)
+        return pipeline.stream_bytes(words, total), total
+
+    payload, total = encode2_place(packed, meta, over)
     arrays = golden.CodecArrays(height=img.shape[0], width=img.shape[1],
                                 quality=quality, dc=dc, ac=ac)
 
@@ -2912,9 +2917,8 @@ def auto_table_breakdown(img: np.ndarray, stage) -> None:
              lambda: huffman.block_bit_counts(dc, ac, spec).max()),
          codec_tables_from_spec_ms=stage(
              lambda: CodecTables.from_spec(spec, quality, DEV)),
-         encode2_place_ms=stage(lambda: place_stream(
-             *encode2.encode2(zz, run_tables, nb, from_zz=True), nb,
-             nb * 8)),
+         encode2_place_ms=stage(lambda: encode2_place(
+             *encode2.encode2(zz, run_tables, nb, from_zz=True))),
          assemble_ms=stage(assemble))
 
 

@@ -386,7 +386,7 @@ def nccl_rank(mesh, sz: dict, exact: list[bytes], two_cuts: bool) -> dict:
         shard_sync(mesh)
         out["two_cuts"] = {
             "blocks": [b - a for a, b in ranges],
-            "calls": [len(tiled.sub_ranges(a, b)) for a, b in ranges],
+            "calls": [len(pipeline.sub_ranges(a, b)) for a, b in ranges],
             "exact": sha([exact_huge]), "fast": sha([fast_huge]),
             "seconds": time.perf_counter() - t0, "launches": since(before),
             "encode2_by_card": {
@@ -792,7 +792,7 @@ def local_checks(rec: Record, sz: dict, mesh, run: dict, refs: dict,
     if sz["max_pixels"]:
         pipeline.MAX_PIXELS = sz["max_pixels"]
     try:
-        calls = [len(tiled.sub_ranges(*tiled.block_range(nb, n, r)))
+        calls = [len(pipeline.sub_ranges(*tiled.block_range(nb, n, r)))
                  for r in range(n)]
         before = conformance.launch_counts_by_card()
         t0 = time.perf_counter()

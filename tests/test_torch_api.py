@@ -171,6 +171,24 @@ def test_build_key_follows_the_sources_and_the_headers(tmp_path, monkeypatch):
     assert _build._target("a")[1] != a2
 
 
+def test_the_one_card_codec_imports_nothing_of_parallel():
+    """The layering rule: ``api`` -> ``engine`` -> ``pipeline`` -> ``ops``
+    is drawn without an arrow up into ``parallel/``."""
+    code = (
+        "import sys\n"
+        "import tinyimgcodec_tpu_torch, tinyimgcodec_tpu_torch.engine, "
+        "tinyimgcodec_tpu_torch.pipeline\n"
+        "bad = [m for m in sys.modules "
+        "if m.startswith('tinyimgcodec_tpu_torch.parallel')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("clean")
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     # the port's scripts too (their entry points run under __main__)
     repo = pathlib.Path(__file__).resolve().parent.parent

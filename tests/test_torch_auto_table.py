@@ -15,12 +15,13 @@ import torch
 from tinyimgcodec_tpu import container as jcontainer
 from tinyimgcodec_tpu import huffman as jhuffman
 from tinyimgcodec_tpu.ops import entropy as jentropy
-from tinyimgcodec_tpu_torch import container, engine, golden, huffman
+from tinyimgcodec_tpu_torch import (
+    container, engine, golden, huffman, pipeline,
+)
 from tinyimgcodec_tpu_torch.constants import ZIGZAG_ORDER, quant_divisors
 from tinyimgcodec_tpu_torch.engine import KERNEL_BLOCK_BITS, Engine
 from tinyimgcodec_tpu_torch.metrics import psnr
 from tinyimgcodec_tpu_torch.ops.encode2 import encode2_plain
-from tinyimgcodec_tpu_torch.parallel import tiled
 from tinyimgcodec_tpu_torch.tables import (
     CodecTables, dct_basis, fast_encode_matrix, symbol_words,
 )
@@ -99,9 +100,9 @@ def _image_with_runs(quality: int = 90) -> np.ndarray:
 @pytest.fixture
 def routes(monkeypatch):
     """The route each auto-table encode took, in call order (the kernel
-    route codes its block ranges through ``parallel.tiled``)."""
+    route codes its block ranges through ``pipeline.encode_ranges``)."""
     taken = []
-    kernel, host = tiled.encode2, container.compress_arrays
+    kernel, host = pipeline.encode2, container.compress_arrays
 
     def spy_kernel(*args, **kwargs):
         taken.append("kernel")
@@ -111,7 +112,7 @@ def routes(monkeypatch):
         taken.append("host")
         return host(*args, **kwargs)
 
-    monkeypatch.setattr(tiled, "encode2", spy_kernel)
+    monkeypatch.setattr(pipeline, "encode2", spy_kernel)
     monkeypatch.setattr(container, "compress_arrays", spy_host)
     return taken
 

@@ -20,7 +20,6 @@ from tinyimgcodec_tpu_torch.engine import (
 )
 from tinyimgcodec_tpu_torch.ops import transform
 from tinyimgcodec_tpu_torch.ops.exact_transform import exact_transform
-from tinyimgcodec_tpu_torch.parallel import tiled
 from tinyimgcodec_tpu_torch.tables import CodecTables
 
 from conftest import synthetic_image
@@ -211,7 +210,7 @@ def test_encode_to_words_across_block_ranges(monkeypatch, jax_engine):
     first row of the second and third coded again on the host."""
     img = _flagged_image()
     monkeypatch.setattr(pipeline, "MAX_PIXELS", 64 * 24)
-    assert tiled.sub_ranges(0, 64) == [(0, 24), (24, 48), (48, 64)]
+    assert pipeline.sub_ranges(0, 64) == [(0, 24), (24, 48), (48, 64)]
     rows = []
     real = native.entropy_encode
 

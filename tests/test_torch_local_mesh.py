@@ -126,7 +126,7 @@ def test_encode_tiled_in_sub_ranges_on_each_shard(monkeypatch):
     """With one call's limit lowered to 7 blocks, each of 2 shards cuts
     its 18 blocks into three calls: the oracle's stream all the same."""
     monkeypatch.setattr(pipeline, "MAX_PIXELS", 64 * 7)
-    assert tiled.sub_ranges(*tiled.block_range(35, 2, 0)) == [
+    assert pipeline.sub_ranges(*tiled.block_range(35, 2, 0)) == [
         (0, 7), (7, 14), (14, 18)]
     assert tiled.encode_tiled(IMG, 50, mesh=_local(2)) == \
         container.compress(IMG, 50)

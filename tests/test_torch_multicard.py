@@ -201,13 +201,13 @@ def _rank_work(mesh):
     torch.set_num_threads(1)
     pipeline.MAX_PIXELS = 64 * CALL_BLOCKS
     calls = []
-    real = tiled.encode2
+    real = pipeline.encode2
 
     def counted(*a, **kw):
         calls.append(a[0].shape[1])
         return real(*a, **kw)
 
-    tiled.encode2 = counted
+    pipeline.encode2 = counted
     img = seeded_image(*HUGE, 16)
     out = {"rank": mesh.rank, "device": str(mesh.device),
            "comm_device": str(mesh.comm_device),

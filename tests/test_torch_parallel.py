@@ -71,14 +71,14 @@ def test_encode_tiled_in_sub_ranges_keeps_the_bytes(precision, assemble,
     if precision == "exact":
         assert whole == jcontainer.compress(img, 50)
     calls = []
-    real = tiled.encode2
+    real = pipeline.encode2
 
     def spy(x, tables, nb, from_zz=False, dc_init=None):
         calls.append((nb, None if dc_init is None else int(dc_init[0])))
         return real(x, tables, nb, from_zz=from_zz, dc_init=dc_init)
 
     monkeypatch.setattr(pipeline, "MAX_PIXELS", 64 * 37)
-    monkeypatch.setattr(tiled, "encode2", spy)
+    monkeypatch.setattr(pipeline, "encode2", spy)
     got = tiled.encode_tiled(img, 50, mesh=_one(), precision=precision,
                              assemble=assemble)
     assert got == whole
@@ -110,7 +110,7 @@ def test_encode2_dc_init_continues_a_range(cuts):
         assert not bool(over)
         words, _, bits, _ = place_plain(packed, meta, b - a, (b - a) * 52)
         segments.append((words, int(bits)))
-    words, bits = tiled.concat_bits(segments, torch.device(CPU))
+    words, bits = pipeline.concat_bits(segments, torch.device(CPU))
     assert bits == int(total)
     assert pipeline.stream_bytes(words, bits) == pipeline.stream_bytes(
         full, int(total))

@@ -187,11 +187,10 @@ def test_true_shape_and_tensor_input():
 def test_an_image_over_the_pixel_limit_is_encoded_in_block_ranges(
         precision, entry, monkeypatch):
     """With the limit lowered to 37 blocks, a 100x123 image (208 blocks)
-    goes through ``parallel.tiled`` in six calls of the kernels with the DC
+    goes through ``pipeline.compress_image`` in six calls of the kernels with the DC
     predictor carried across each cut: exact mode gives the oracle's
     bytes, fast mode the bytes of the uncut call, trailer included."""
     from tinyimgcodec_tpu_torch import api, pipeline
-    from tinyimgcodec_tpu_torch.parallel import tiled
 
     img = synthetic_image(100, 123, seed=76)
     auto = entry == "compress auto table"
@@ -206,13 +205,13 @@ def test_an_image_over_the_pixel_limit_is_encoded_in_block_ranges(
     uncut = run()
     monkeypatch.setattr(pipeline, "MAX_PIXELS", 64 * 37)
     calls = []
-    real = tiled.encode2
+    real = pipeline.encode2
 
     def spy(x, tables, nb, from_zz=False, dc_init=None):
         calls.append(nb)
         return real(x, tables, nb, from_zz=from_zz, dc_init=dc_init)
 
-    monkeypatch.setattr(tiled, "encode2", spy)
+    monkeypatch.setattr(pipeline, "encode2", spy)
     got = run()
     assert got == uncut
     assert calls == ([37] * 5 + [23]) * len(got)
@@ -257,9 +256,9 @@ def test_a_batch_over_the_pixel_limit_is_cut_at_image_boundaries(
     blocks = []  # the blocks of each encode2 call
     real = pipeline.encode2
 
-    def spy(x, tables, nb, from_zz=False):
+    def spy(x, tables, nb, from_zz=False, dc_init=None):
         blocks.append(x.shape[1] if from_zz else x.shape[0])
-        return real(x, tables, nb, from_zz=from_zz)
+        return real(x, tables, nb, from_zz=from_zz, dc_init=dc_init)
 
     monkeypatch.setattr(pipeline, "encode2", spy)
     got = compress_batch_device(batch, 50, precision=precision,

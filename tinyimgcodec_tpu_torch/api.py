@@ -62,7 +62,7 @@ def compress(
     block_index: append the TICX block-offset trailer (default on).
     config: a validated CodecConfig; overrides the loose kwargs.
     An image of more than 16 Mi pixels is encoded in block ranges of one
-    kernel call each (``parallel/tiled.py``), with the same bytes.
+    kernel call each (``pipeline.compress_image``), with the same bytes.
     """
     if config is None:
         config = CodecConfig(

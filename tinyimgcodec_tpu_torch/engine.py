@@ -5,8 +5,8 @@ the batch pipeline with B = 1, so the one-image entry point and the batch
 entry point are the same program.  ``compress(..., auto_table=True)`` codes
 the image with Huffman tables built for it at run time: coefficients on
 the device, histograms and tables on the host, then the same ``encode2`` +
-``place`` kernels with the new tables (or the host container when the
-tables leave the kernels' range).
+``place`` kernels with the new tables, in the pipeline's block ranges (or
+the host container when the tables leave the kernels' range).
 
 Decode has three legs, chosen per stream by what the *stream* is, never
 by what the device or the build did:
@@ -61,9 +61,10 @@ from .ops.encode2 import fast_coefficients
 from .ops.entropy_decode import (
     chunk_table, entropy_decode_chunks, prepare_batch,
 )
-from .parallel import tiled
 from .pipeline import (
-    TableRangeError, compress_batch_device, exact_coefficients, stream_bytes,
+    TableRangeError, compress_batch_device, concat_bits, encode_ranges,
+    exact_coefficients, range_blocks, range_coefficients, stream_bytes,
+    sub_ranges,
 )
 from .tables import CodecTables, DecodeTables, dequant_multipliers
 
@@ -248,9 +249,9 @@ class Engine:
         h8, w8 = padded.shape
         nb = (h8 // 8) * (w8 // 8)
         dev = self.device
-        # in sub-ranges of at most one kernel call's pixels, as the tiled
-        # path cuts an image of more than ``MAX_PIXELS``
-        zz_list = tiled.range_coefficients(
+        # in sub-ranges of at most one kernel call's pixels, as the
+        # pipeline cuts an image of more than ``MAX_PIXELS``
+        zz_list = range_coefficients(
             padded, 0, nb, CodecTables.build(quality, dev), self.precision,
             dev)
         zz_np = np.concatenate([zz.cpu().numpy() for zz in zz_list], axis=1)
@@ -265,13 +266,12 @@ class Engine:
                 arrays, True, block_index=block_index, spec=spec,
                 index_stride=index_stride,
             )
-        segments, offsets, table_over = tiled.encode_ranges(
+        segments, offsets, table_over = encode_ranges(
             zz_list, CodecTables.from_spec(spec, quality, dev), None,
             bits_per_pixel_budget=4.0, with_offsets=block_index)
         if table_over:
             raise TableRangeError()
-        words, total = tiled.concat_bits(
-            [(w.cpu(), bits) for w, bits in segments], torch.device("cpu"))
+        words, total = concat_bits(segments, torch.device("cpu"))
         writer = BitWriter()
         writer.write_bytes(container.make_header(arrays, custom_table=True))
         container.write_huffman_table(writer, spec.string_tables())
@@ -293,7 +293,7 @@ class Engine:
 
         ``encode1`` on the device, from ``exact_coefficients`` (exact) or
         from the pixels (fast), in the block ranges of
-        ``tiled.sub_ranges`` (one call each); the first block of a later
+        ``pipeline.sub_ranges`` (one call each); the first block of a later
         range was coded with the predictor reset, so its row is coded
         again on the host from the previous range's last DC.  A
         coefficient outside the standard tables raises ``ValueError``."""
@@ -306,11 +306,11 @@ class Engine:
         nb = (padded.shape[0] // 8) * (padded.shape[1] // 8)
         dev = self.device
         tables = CodecTables.build(quality, dev)
-        ranges = tiled.sub_ranges(0, nb)
+        ranges = sub_ranges(0, nb)
         words, bits, over = [], [], []
         prev_dc = 0
         for k, (a, b) in enumerate(ranges):
-            blocks = tiled.range_blocks(padded, a, b, dev)
+            blocks = range_blocks(padded, a, b, dev)
             if self.precision == transform.EXACT:
                 zz = exact_coefficients(blocks, tables)
                 w, n, flag = encode1(zz.T.contiguous(), tables, b - a,

@@ -11,10 +11,9 @@ The counterpart of the JAX package's ``parallel`` package:
   (``make_mesh(devices=[...])`` inside it, JAX's multi-host mesh);
   ``init_distributed`` and ``spawn``.
 - :mod:`.tiled` -- one image's blocks split into contiguous ranges over
-  the shards and, within a shard, into calls of at most
-  ``pipeline.MAX_PIXELS`` pixels, with the DC predictor carried across
-  every cut and the segments stitched at bit offsets.  It is also the
-  path of a single image larger than one call of the kernels.
+  the shards, each encoded through the pipeline's block ranges (calls of
+  at most ``pipeline.MAX_PIXELS`` pixels), with the DC predictor carried
+  across every shard and the segments stitched at bit offsets.
 - :mod:`.batch` -- data-parallel encode and decode of image batches.
 - :mod:`.stream` -- double-buffered host-to-card encode of an image
   stream, and the chunked decode of a stream of streams.
