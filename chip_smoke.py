@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the C host runtime (``tinyimgcodec_tpu_torch/native``, with
-``cc``) and the six CUDA kernels from ``tinyimgcodec_tpu_torch/csrc`` with
+``cc``) and the seven CUDA kernels from ``tinyimgcodec_tpu_torch/csrc`` with
 ``nvcc``, holds each kernel against its plain PyTorch version on the card,
 drives the port's main path -- the round trip: ``compress_batch`` of a 49 x
 512 x 512 corpus (exact, fast, and fast through the v1 kernels), one
@@ -142,12 +142,12 @@ from tinyimgcodec_tpu_torch.constants import (  # noqa: E402
 )
 from tinyimgcodec_tpu_torch.device import card_info  # noqa: E402
 from tinyimgcodec_tpu_torch.engine import (  # noqa: E402
-    KERNEL_BLOCK_BITS, Engine, _host_decode_blocks,
+    KERNEL_BLOCK_BITS, Engine,
 )
 from tinyimgcodec_tpu_torch.metrics import psnr  # noqa: E402
 from tinyimgcodec_tpu_torch.ops import (  # noqa: E402
-    _build, encode1, encode2, entropy_decode, exact_transform, place, stitch,
-    transform,
+    _build, encode1, encode2, entropy_decode, exact_inverse, exact_transform,
+    place, stitch, transform,
 )
 from tinyimgcodec_tpu_torch import pipeline  # noqa: E402
 from tinyimgcodec_tpu_torch.parallel import (  # noqa: E402
@@ -157,7 +157,7 @@ from tinyimgcodec_tpu_torch.pipeline import (  # noqa: E402
     compress_batch_device, exact_coefficients,
 )
 from tinyimgcodec_tpu_torch.tables import (  # noqa: E402
-    CodecTables, DecodeTables, dequant_multipliers, fast_decode_matrix,
+    CodecTables, DecodeTables, dequant_steps, fast_decode_matrix,
 )
 import torch_bench  # noqa: E402
 
@@ -1177,7 +1177,7 @@ def check_decode_arrays(small: list[bytes]) -> dict:
         [0x01, 0x02, 0x11, 0x00, 0x03, 0x21, 0xF0, 0x12, 0x04, 0x31, 0x05,
          0x41, 0x13, 0x22, 0x0A, 0x7A])
     t16 = DecodeTables.from_numpy(dc16, ac16, fast_decode_matrix(50),
-                                  dequant_multipliers(50), device=DEV)
+                                  dequant_steps(50), device=DEV)
     n = 64
     starts = np.arange(n, dtype=np.int64) * 2000
     starts[1] = 100 * 32
@@ -1374,6 +1374,76 @@ def phase_decode_check(corpus: np.ndarray) -> int:
     return worst
 
 
+def inverse_both(label: str, zz: torch.Tensor, h: int, w: int,
+                 tables: DecodeTables) -> tuple[int, int]:
+    """``exact_inverse`` and its plain version on the same rows: (the
+    largest |kernel - plain| over the pixels, the flagged count).  Fails
+    the run unless pixels and counts are equal."""
+    pk, nk = exact_inverse.exact_inverse(zz, h, w, tables)
+    pp, np_ = exact_inverse.exact_inverse_plain(zz, h, w, tables)
+    sync()
+    err = max_abs_diff((pk, pp))
+    if not eq(pk, pp) or int(nk) != int(np_):
+        fail(f"exact_inverse[{label}]: kernel and plain version differ "
+             f"(pixels {int((pk != pp).sum())}, flagged {int(nk)} against "
+             f"{int(np_)})")
+    return err, int(nk)
+
+
+def phase_inverse_check(corpus: np.ndarray) -> int:
+    """The exact decode transform against its plain version on the card:
+    the decoded rows of exact streams (the corpus, odd shapes, images of
+    one block), whose pixels must also be the oracle's, and random rows
+    (200 000 blocks in odd-shaped images, a DC sum that wraps in int32).
+    Returns the largest |kernel - plain| over the pixels."""
+    worst, report = 0, []
+    rng = np.random.RandomState(23)
+    odd = synthetic_corpus(3, 128)[:, :61, :83].copy()
+    cases = [
+        ("corpus q50", codec.compress_batch(corpus, 50, device=DEV)),
+        ("corpus q90", codec.compress_batch(corpus, 90, device=DEV)),
+        ("odd 61x83", codec.compress_batch(odd, 50, device=DEV)),
+        ("images of one block", codec.compress_batch(
+            rng.randint(0, 256, (64 if REHEARSE else 2048, 8, 8)).astype(
+                np.uint8), 50, device=DEV)),
+    ]
+    for label, streams in cases:
+        prep, args, dtab = decode_inputs(streams)
+        h, w, _ = prep["shape"]
+        zz = entropy_decode.entropy_decode_chunks(*args, prep["nb_total"],
+                                                  dtab)[0]
+        zz = zz.reshape(len(streams), prep["nb_per_image"], 64)
+        err, flagged = inverse_both(label, zz, h, w, dtab)
+        worst = max(worst, err)
+        pix = exact_inverse.exact_inverse(zz, h, w, dtab)[0].cpu().numpy()
+        for i in (0, len(streams) - 1):
+            if not np.array_equal(pix[i], container.decompress(streams[i])):
+                fail(f"exact_inverse[{label}]: image {i} differs from the "
+                     "oracle")
+        report.append({"case": label, "images": len(streams),
+                       "shape": [h, w], "flagged": flagged,
+                       "max_abs_err": err})
+    tables = DecodeTables.build(50, False, DEV)
+    b, h, w = (2, 40, 40) if REHEARSE else (5, 1597, 1599)
+    nb = -(-h // 8) * -(-w // 8)
+    zz = rng.randint(-8, 9, (b, nb, 64)) * (rng.rand(b, nb, 64) < 0.1)
+    zz[..., 0] = np.diff(rng.randint(-64, 65, (b, nb)), axis=1, prepend=0)
+    wrap = np.zeros((2, 96, 64), np.int64)
+    wrap[..., 0] = 2 ** 31 - 1
+    for label, rows, hw in (("random rows", zz, (h, w)),
+                            ("DC sum past 2**31", wrap, (64, 96))):
+        rows = torch.from_numpy(rows.astype(np.int32)).to(DEV)
+        err, flagged = inverse_both(label, rows, *hw, tables)
+        worst = max(worst, err)
+        report.append({"case": label, "images": int(rows.shape[0]),
+                       "shape": list(hw), "flagged": flagged,
+                       "max_abs_err": err})
+    emit("inverse_check", cases=report,
+         tolerance="pixels and flagged counts equal bit for bit; the "
+         "decoded streams' pixels equal to container.decompress")
+    return worst
+
+
 def first_flip_that_fails(stream: bytes, nb: int) -> bytes:
     """``stream`` with one payload byte inverted such that a chunk fails
     the device decoder's validation (many flips resynchronise and do
@@ -1415,7 +1485,9 @@ def counted(label: str, fn, want: dict, per_path: dict):
 ENCODE_EXACT = {"exact_transform": (1,), "encode2_zz": (1,), "place": (1, 2)}
 ENCODE_FAST = {"encode2_pixels": (1,), "place": (1, 2)}
 ENCODE_V1 = {"encode1": (1,), "stitch": (1, 2)}
-DECODE_KERNEL = {"entropy_decode": (1,)}
+# an exact decode on the kernel leg; a fast one runs no exact_inverse
+DECODE_KERNEL = {"entropy_decode": (1,), "exact_inverse": (1,)}
+DECODE_FAST = {"entropy_decode": (1,)}
 
 
 def phase_main_path(corpus: np.ndarray) -> tuple[dict, list[bytes],
@@ -1459,7 +1531,7 @@ def phase_main_path(corpus: np.ndarray) -> tuple[dict, list[bytes],
     decoded_fast = counted("decompress_batch fast",
                            lambda: codec.decompress_batch(
                                exact, precision="fast", device=DEV),
-                           DECODE_KERNEL, per_path)
+                           DECODE_FAST, per_path)
     decode_secs = time.perf_counter() - t0
     if v1 != fast_noindex:
         fail("v1 fast bytes differ from v2 fast bytes for images "
@@ -1524,7 +1596,8 @@ def phase_main_path(corpus: np.ndarray) -> tuple[dict, list[bytes],
     for label, batch, want, stats, kernels in (
         ("no_trailer_in_batch", [exact[0], no_trailer, flipped, exact[3]],
          [oracle[0], oracle[1], flipped_oracle, oracle[3]],
-         {"kernel": 0, "host_entropy": 4, "host_decoder": 0}, {}),
+         {"kernel": 0, "host_entropy": 4, "host_decoder": 0},
+         {"exact_inverse": (1,)}),
         ("corrupt_in_batch", [exact[0], flipped, exact[3], exact[4 % n_img]],
          [oracle[0], flipped_oracle, oracle[3], oracle[4 % n_img]],
          {"kernel": 3, "host_entropy": 0, "host_decoder": 1}, DECODE_KERNEL),
@@ -1672,7 +1745,8 @@ def phase_auto_table(corpus: np.ndarray) -> tuple[dict, int, list]:
 
     on_kernel = sum(route == "kernel" for *_, route in every)
     decoded = counted(f"decompress auto_table x{len(every)}", decode_all,
-                      {"entropy_decode": (on_kernel,)}, per_path)
+                      {"entropy_decode": (on_kernel,),
+                       "exact_inverse": (len(every),)}, per_path)
     for (quality, i, data, _), out in zip(every, decoded):
         if not np.array_equal(out, container.decompress(data)):
             fail(f"auto_table: q{quality} image {i} decodes to other "
@@ -2070,7 +2144,7 @@ def check_sharded_rank(phase: str, label: str, r: dict, want: dict,
         return
     got = r["counts"]
     for k in ("exact_transform", "encode2_zz", "encode2_pixels", "place",
-              "entropy_decode"):
+              "entropy_decode", "exact_inverse"):
         if got[k] < 1:
             fail(f"{phase}[{label}]: {k} was not launched")
     for k, cards in r["by_card"].items():
@@ -2321,7 +2395,7 @@ def phase_stream(corpus: np.ndarray) -> dict:
         fail("stream: compress_stream differs from compress_batch")
     decoded = counted(f"decompress_stream chunk {chunk}", lambda: list(
         pstream.decompress_stream(iter(exact), chunk=chunk, device=DEV)),
-        {"entropy_decode": (k,)}, per_path)
+        {"entropy_decode": (k,), "exact_inverse": (k,)}, per_path)
     ref = codec.decompress_batch(exact, device=DEV)
     if not all(np.array_equal(a, b) for a, b in zip(decoded, ref)) or len(
             decoded) != n:
@@ -2499,8 +2573,8 @@ def phase_host_legs(corpus: np.ndarray, exact: list[bytes]) -> dict:
          f"the {len(exact)} streams without trailers through the "
          "host-entropy leg, its stages each timed alone (host clock, "
          "synchronised, median): the C decodes on the pool, compaction, "
-         "upload, widening + undo_dpcm + decode_blocks, flags + float64 "
-         "recompute, unblockify + pull", **out)
+         "upload, widening, then exact_inverse and the pull (exact) or "
+         "undo_dpcm + decode_blocks and unblockify + pull (fast)", **out)
     return out
 
 
@@ -2854,6 +2928,28 @@ def phase_kernels(corpus: np.ndarray, launched: dict, errs: dict,
         launch_shape=q50["launch_shape"], symbols=q50["symbols"],
         longest_chunk_symbols=q50["longest_chunk_symbols"], q90=q90,
     ))
+    # exact_inverse: the decoded rows of the main path's exact streams to
+    # the cropped pixels; 256 B in and 64 B out a block, the tables; two
+    # 8x8x8 products of a multiply and an add each and 64 multiplies of
+    # the dequantization in float64 a block
+    zz_e = entropy_decode.entropy_decode_chunks(*args, nb_total, dtab)[0]
+    zz_e = zz_e.reshape(corpus.shape[0], nb, 64)
+    h, w = corpus.shape[1:]
+    out.append(row(
+        "exact_inverse", src + "exact_inverse.cu",
+        "none: the JAX package's decode transform is an XLA program "
+        "(tinyimgcodec_tpu/ops/transform.py: undo_dpcm, decode_blocks, "
+        "unblockify)",
+        launched["exact_inverse"], errs["exact_inverse"],
+        time_ms(lambda: exact_inverse.exact_inverse(zz_e, h, w, dtab), reps),
+        time_ms(lambda: exact_inverse.exact_inverse_plain(zz_e, h, w, dtab),
+                max(1, reps // 4)),
+        n * (256 + 64) + 3 * 64 * 8, n * (2 * 2 * 512 + 64), FP64_PER_S,
+        device_split=device_split(
+            lambda: exact_inverse.exact_inverse(zz_e, h, w, dtab), reps,
+            "exact_inverse_kernel"),
+        flagged=int(exact_inverse.exact_inverse(zz_e, h, w, dtab)[1]),
+    ))
     return out
 
 
@@ -2932,20 +3028,7 @@ def decode_stages(streams: list[bytes], reps: int) -> dict:
     zz, _ = entropy_decode.entropy_decode_chunks(*args, prep["nb_total"],
                                                  dtab)
     zz = zz.reshape(b, -1, 64)
-
-    def xform():
-        zz_abs = transform.undo_dpcm(zz)
-        return zz_abs, *transform.decode_blocks(
-            zz_abs, quality, transform.EXACT, with_flags=True, tables=dtab)
-
-    zz_abs, px_blocks, flags = xform()
-    idx = torch.nonzero(flags.reshape(-1)).reshape(-1)
-
-    def recompute():
-        rows = zz_abs.reshape(-1, 64)[idx].cpu().numpy()
-        fixed = _host_decode_blocks(rows, quality, False)
-        px_blocks.reshape(-1, 8, 8)[idx] = torch.from_numpy(fixed).to(DEV)
-
+    pixels, flagged = exact_inverse.exact_inverse(zz, h, w, dtab)
     return {
         "prepare_batch_host_ms": host_ms(
             lambda: entropy_decode.prepare_batch(streams), reps),
@@ -2954,15 +3037,11 @@ def decode_stages(streams: list[bytes], reps: int) -> dict:
         "entropy_decode_ms": host_ms(
             lambda: entropy_decode.entropy_decode_chunks(
                 *args, prep["nb_total"], dtab), reps),
-        "undo_dpcm_and_decode_blocks_ms": host_ms(xform, reps),
-        "flags_to_host_ms": host_ms(
-            lambda: torch.nonzero(flags.reshape(-1)).cpu(), reps),
-        "flagged_recompute_ms": host_ms(recompute, reps),
-        "unblockify_and_pull_pixels_ms": host_ms(
-            lambda: transform.unblockify(px_blocks, h, w).contiguous().cpu(),
-            reps),
-        "flagged_blocks": int(idx.numel()),
-        "blocks": int(flags.numel()),
+        "exact_inverse_ms": host_ms(
+            lambda: exact_inverse.exact_inverse(zz, h, w, dtab), reps),
+        "pull_pixels_ms": host_ms(lambda: pixels.cpu(), reps),
+        "flagged_blocks": int(flagged),
+        "blocks": int(zz.shape[0] * zz.shape[1]),
         "stream_words": int(args[0].numel()),
         "chunks": int(args[1].numel()),
     }
@@ -3062,9 +3141,9 @@ def phase_timing(corpus: np.ndarray, streams: list[bytes],
     decode_breakdown = decode_stages(streams, reps)
     emit("decode_breakdown", note="stages of one exact decode pass of the "
          "corpus streams, each timed alone (host clock, synchronised); "
-         "upload_words_and_chunks includes prepare_batch; flagged_recompute "
-         "= pull of the flagged rows + float64 host inverse DCT + patch",
-         **decode_breakdown)
+         "upload_words_and_chunks includes prepare_batch; exact_inverse = "
+         "the one kernel from the rows to the cropped pixels, its flagged "
+         "blocks settled on the card", **decode_breakdown)
     emit("timing", megapixels=mp, repeats=reps,
          note="host clock around compress_batch incl. the pull of the "
               "streams and the per-image slicing; on_device skips only "
@@ -3095,6 +3174,7 @@ def main() -> None:
                                   phase_exact_shapes(corpus))
     errs["stitch"] = max(errs["stitch"], phase_stitch_shapes(corpus))
     errs["entropy_decode"] = phase_decode_check(corpus)
+    errs["exact_inverse"] = phase_inverse_check(corpus)
     launched, exact_streams, fast_streams = phase_main_path(corpus)
     auto_paths, auto_err, auto_streams = phase_auto_table(corpus)
     errs["encode2"] = max(errs["encode2"], auto_err)

@@ -15,18 +15,19 @@ median of ``--reps`` after a warm call):
 - ``c_decode_pool``: the entropy decode of every stream on the pool;
 - ``compaction``: the host arrays into the upload form;
 - ``upload``: that form to the card (pageable memory);
-- ``widen_and_transform``: the widening (narrow form only), ``undo_dpcm``
-  and ``decode_blocks`` with its flags;
-- ``flags_and_recompute``: the flags to the host and the float64 recompute
-  of the flagged blocks (exact only);
-- ``unblockify_and_pull``: the pixels to the host;
+- ``widen_and_transform``: the widening (narrow form only), then in
+  exact mode ``exact_inverse`` (one kernel to the cropped pixels, the
+  flagged blocks settled on the card), in fast mode ``undo_dpcm``,
+  ``decode_blocks`` and ``unblockify``;
+- ``pull``: the pixels to the host;
 
 beside the engine's whole call (``Engine(precision).decompress_batch``)
 and the bytes the upload moves.  The upload form is the tree's: the
 narrow one (int16 DC, int8 AC and the outliers) where the engine has
 ``compact_coefficients``, else the (B, nb, 64) int32 of
 ``stack_coefficients``, so the same script runs on an older tree of the
-port, for a comparison of two trees in one call on one card.  It also
+port that has ``ops/exact_inverse.py``, for a comparison of two trees in
+one call on one card.  It also
 times the tree's ``torch_bench.bench_decode_device`` (the decode transform
 alone, replayed from a CUDA graph; ``torch_bench.py``'s ``decode/device``).
 
@@ -51,6 +52,9 @@ import tinyimgcodec_tpu_torch as codec  # noqa: E402
 from tinyimgcodec_tpu_torch import container  # noqa: E402
 from tinyimgcodec_tpu_torch import engine as engine_mod  # noqa: E402
 from tinyimgcodec_tpu_torch.ops import transform  # noqa: E402
+from tinyimgcodec_tpu_torch.ops.exact_inverse import (  # noqa: E402
+    exact_inverse,
+)
 from tinyimgcodec_tpu_torch.tables import DecodeTables  # noqa: E402
 
 
@@ -120,33 +124,24 @@ def host_entropy_stages(streams: list[bytes], precision: str,
     on_dev = upload(form, dev)
 
     def xform():
-        zz_abs = transform.undo_dpcm(widen(on_dev, dev))
-        return zz_abs, *transform.decode_blocks(
-            zz_abs, quality, precision, scaled_dct=bool(a0.scaled_dct),
-            with_flags=True, tables=tables)
+        zz = widen(on_dev, dev)
+        if precision == transform.EXACT:
+            return exact_inverse(zz, h, w, tables)
+        blocks = transform.decode_blocks(
+            transform.undo_dpcm(zz), quality,
+            scaled_dct=bool(a0.scaled_dct), tables=tables)
+        return transform.unblockify(blocks, h8, w8)[:, :h, :w], None
 
-    zz_abs, blocks, flags = xform()
-
-    def recompute():
-        idx = torch.nonzero(flags.reshape(-1)).reshape(-1)
-        if idx.numel():
-            rows = zz_abs.reshape(-1, 64)[idx].cpu().numpy()
-            fixed = engine_mod._host_decode_blocks(rows, quality,
-                                                   bool(a0.scaled_dct))
-            blocks.reshape(-1, 8, 8)[idx] = torch.from_numpy(fixed).to(dev)
-        return int(idx.numel())
-
-    flagged = recompute()
+    pixels, flagged = xform()
+    flagged = None if flagged is None else int(flagged)
     eng = engine_mod.Engine(precision, dev)
     stages = {
         "c_decode_pool_ms": host_ms(lambda: c_decode(streams), reps, dev),
         "compaction_ms": host_ms(lambda: compact(arrays), reps, dev),
         "upload_ms": host_ms(lambda: upload(form, dev), reps, dev),
         "widen_and_transform_ms": host_ms(xform, reps, dev),
-        "flags_and_recompute_ms": host_ms(recompute, reps, dev),
-        "unblockify_and_pull_ms": host_ms(
-            lambda: transform.unblockify(blocks, h8, w8)[:, :h, :w]
-            .contiguous().cpu().numpy(), reps, dev),
+        "pull_ms": host_ms(
+            lambda: pixels.contiguous().cpu().numpy(), reps, dev),
     }
     total = host_ms(lambda: eng.decompress_batch(streams), reps, dev)
     if eng.decode_stats["host_entropy"] != len(streams):

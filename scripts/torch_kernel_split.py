@@ -8,8 +8,8 @@ Run from the root of a checkout, on a machine with an NVIDIA card:
 At the corpus shape (49 images of 512x512, quality 50) it calls the
 wrappers of the encode kernels (``encode2`` and ``encode1`` in both input
 forms, ``place`` at the pipeline's capacity and at its retry capacity,
-``stitch`` at both capacities, ``exact_transform``) and the
-``entropy_decode`` wrapper under
+``stitch`` at both capacities, ``exact_transform``) and the decode
+wrappers (``entropy_decode``, ``exact_inverse``) under
 ``torch.profiler`` and prints, for each, the device time of every kernel,
 memset and small tensor operation the wrapper launches (mean microseconds a
 call), beside the wrapper's CUDA-event median and the host time of a call
@@ -160,7 +160,7 @@ def sweep_decode_shapes(args, prep, dtab) -> None:
     every repeat stores the same values) over chunks a warp, warps a CTA
     and the lookup table's width; CUDA-event medians, milliseconds."""
     from tinyimgcodec_tpu_torch.tables import (
-        dequant_multipliers, fast_decode_matrix, standard_decode_tables,
+        dequant_steps, fast_decode_matrix, standard_decode_tables,
     )
 
     nb_total = prep["nb_total"]
@@ -173,7 +173,7 @@ def sweep_decode_shapes(args, prep, dtab) -> None:
     for bits in (8, 9, 10, 11):
         tab = DecodeTables.from_numpy(
             *(prep["tables"] or standard_decode_tables()),
-            fast_decode_matrix(quality), dequant_multipliers(quality),
+            fast_decode_matrix(quality), dequant_steps(quality),
             device=DEV, lookup_bits=bits)
         for cpw in (1, 2, 4, 8, 16, 32):
             for warps in (2, 4, 8):
@@ -245,6 +245,13 @@ def main() -> None:
     if hasattr(entropy_decode, "launch_shape") and wanted("entropy_decode"):
         sweep_decode_shapes(args, prep, dtab)
         sweep_chunks_a_warp(exact * 4)
+    if wanted("exact_inverse"):
+        from tinyimgcodec_tpu_torch.ops import exact_inverse
+
+        rows = entropy_decode.entropy_decode_chunks(
+            *args, prep["nb_total"], dtab)[0].reshape(len(exact), nb, 64)
+        split("exact_inverse", lambda: exact_inverse.exact_inverse(
+            rows, 512, 512, dtab))
     print(json.dumps({
         "sha256_fast_streams": hashlib.sha256(b"".join(fast)).hexdigest(),
         "sha256_exact_streams": hashlib.sha256(b"".join(exact)).hexdigest(),

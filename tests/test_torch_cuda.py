@@ -22,14 +22,15 @@ from tinyimgcodec_tpu_torch.corpus import (
 )
 from tinyimgcodec_tpu_torch.engine import Engine
 from tinyimgcodec_tpu_torch.ops import (
-    _build, encode1, encode2, entropy_decode, exact_transform, place, stitch,
+    _build, encode1, encode2, entropy_decode, exact_inverse, exact_transform,
+    place, stitch,
 )
 from tinyimgcodec_tpu_torch.ops import transform
 from tinyimgcodec_tpu_torch.pipeline import (
     compress_batch_device, exact_coefficients,
 )
 from tinyimgcodec_tpu_torch.tables import (
-    CodecTables, DecodeTables, dequant_multipliers, fast_decode_matrix,
+    CodecTables, DecodeTables, dequant_steps, fast_decode_matrix,
 )
 
 from conftest import synthetic_image
@@ -423,7 +424,7 @@ def test_entropy_decode_table_with_16_bit_codes(cuda):
         table([0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 15, 20, 200]),
         table([0x01, 0x02, 0x11, 0x00, 0x03, 0x21, 0xF0, 0x12, 0x04, 0x31,
                0x05, 0x41, 0x13, 0x22, 0x0A, 0x7A]),
-        fast_decode_matrix(50), dequant_multipliers(50), device=cuda)
+        fast_decode_matrix(50), dequant_steps(50), device=cuda)
     rng = np.random.RandomState(16)
     words = rng.randint(0, 1 << 32, 4096, dtype=np.int64).astype(np.uint32)
     words[100:110] = 0xFFFFFFFF
@@ -1119,3 +1120,156 @@ def test_encode_to_words_on_the_card_equals_the_cpu(cuda, monkeypatch):
             payload = compress_batch_device(
                 img[None], 50, precision="fast", device=cuda)[0]
             assert native.stitch(words, bits) == payload[HEADER_BYTES:]
+
+
+# ---- exact decode's transform: exact_inverse ----------------------------------
+
+
+def _inverse_both(zz, h, w, quality=50, scaled=False):
+    """The kernel on the card against the plain version on the CPU, on the
+    same rows: pixels and count of flagged blocks equal, bit for bit.
+    Returns the kernel's (pixels, count) on the CPU."""
+    cuda = torch.device("cuda")
+    zz = zz.to(cuda)
+    before = exact_inverse.launches
+    pk, nk = exact_inverse.exact_inverse(
+        zz, h, w, DecodeTables.build(quality, scaled, cuda))
+    assert exact_inverse.launches == before + 1
+    pp, np_ = exact_inverse.exact_inverse_plain(
+        zz.cpu(), h, w, DecodeTables.build(quality, scaled, "cpu"))
+    assert pk.device.type == "cuda" and pk.dtype == torch.uint8
+    assert nk.shape == () and nk.dtype == torch.int64
+    assert torch.equal(pk.cpu(), pp)
+    assert int(nk) == int(np_)
+    return pk.cpu(), int(nk)
+
+
+def _random_rows(seed, b, nb, dc_span=64, ac_span=8):
+    """(b, nb, 64) int32 rows, DC as DPCM differences: a running DC in
+    +-dc_span, a tenth of the AC nonzero in +-ac_span (most values inside
+    0..255, where the floor and the tie test matter)."""
+    rng = np.random.RandomState(seed)
+    zz = rng.randint(-ac_span, ac_span + 1, (b, nb, 64))
+    zz *= rng.rand(b, nb, 64) < 0.1
+    dc = rng.randint(-dc_span, dc_span + 1, (b, nb))
+    zz[..., 0] = np.diff(dc, axis=1, prepend=0)
+    return torch.from_numpy(zz.astype(np.int32))
+
+
+def _stream_rows(streams):
+    return torch.from_numpy(np.stack([
+        np.concatenate([a.dc[:, None], a.ac], axis=1)
+        for a in map(container.decompress_to_arrays, streams)
+    ]).astype(np.int32))
+
+
+def test_exact_inverse_equals_plain_version_on_the_corpus(cuda):
+    """The corpus's entropy-decoded rows at the decode call's shape: the
+    kernel's pixels are the plain version's and the oracle's, its count
+    the plain version's."""
+    corpus = synthetic_corpus(49, 512)
+    streams = compress_batch(corpus, 50, block_index=True, device=cuda)
+    prep = entropy_decode.prepare_batch(streams)
+    dt = DecodeTables.build(50, False, cuda)
+    args = [torch.from_numpy(prep["words"].view(np.int32)).to(cuda)] + [
+        torch.from_numpy(prep[k]).to(cuda) for k in (
+            "chunk_start", "chunk_blocks", "chunk_block_base",
+            "chunk_end_lo", "chunk_end_hi")]
+    zz, ok = entropy_decode.entropy_decode_chunks(*args, prep["nb_total"],
+                                                  dt)
+    assert bool(ok.all())
+    pix, flagged = _inverse_both(zz.reshape(49, 4096, 64), 512, 512)
+    assert flagged > 0
+    for i in (0, 17, 48):
+        assert np.array_equal(pix[i].numpy(), container.decompress(streams[i]))
+
+
+@pytest.mark.parametrize("quality", [10, 50, 90])
+def test_exact_inverse_equals_plain_version_on_random_blocks(cuda, quality):
+    """200 000 blocks of random rows in five odd-shaped images (200 x 200
+    blocks, cropped to 1597 x 1599)."""
+    _inverse_both(_random_rows(quality, 5, 40_000), 1597, 1599, quality)
+
+
+@pytest.mark.parametrize(
+    "b, h, w",
+    [(1, 8, 8),         # one block
+     (3, 8, 8),         # one block an image: every tile starts an image
+     (2, 61, 83),       # odd: the crop in both directions
+     (4, 13, 200),      # one block row and a half, 25 blocks a row
+     (3, 40, 360),      # 45 blocks a row: a full tile and a ragged one
+     (2, 64, 520),      # 65 blocks a row; w % 16 == 8: no 16-byte stores
+     (2, 72, 512),      # w % 16 == 0: 16-byte stores
+     (1, 1, 1)],        # one pixel of one block
+)
+def test_exact_inverse_shapes_equal_plain_version(cuda, b, h, w):
+    nb = -(-h // 8) * -(-w // 8)
+    _inverse_both(_random_rows(b * h + w, b, nb), h, w)
+
+
+def test_exact_inverse_on_unaligned_rows_and_scaled_streams(cuda):
+    """Rows that do not start on 16 bytes take the 4-byte loads; a
+    scaled-DCT stream's dequantization divides first, as the oracle's."""
+    zz = _random_rows(7, 2, 40)
+    flat = torch.zeros(zz.numel() + 1, dtype=torch.int32, device=cuda)
+    flat[1:] = zz.reshape(-1).to(cuda)
+    shifted = flat[1:].view(2, 40, 64)
+    assert shifted.data_ptr() % 16
+    _inverse_both(shifted, 40, 64)
+    for qf in (0, 3):
+        _inverse_both(_random_rows(qf, 3, 64), 64, 64, qf, True)
+
+
+def test_exact_inverse_at_8k(cuda):
+    """One 7680 x 4320 frame, 518 400 blocks: 16 200 tiles in one image,
+    so the running DC crosses thousands of CTAs."""
+    _inverse_both(_random_rows(8, 1, 518_400), 4320, 7680)
+
+
+def test_exact_inverse_dc_sum_that_wraps(cuda):
+    """DC differences whose running sum passes 2**31 and wraps in int32,
+    within a tile and across tiles; the oracle agrees."""
+    zz = torch.zeros((2, 96, 64), dtype=torch.int32)
+    zz[..., 0] = 2 ** 31 - 1
+    zz[0, 40:, 0] = torch.arange(56, dtype=torch.int32) % 5 - 2
+    pix, _ = _inverse_both(zz, 64, 96)
+    for i in range(2):
+        want = golden.decode_arrays(golden.CodecArrays(
+            height=64, width=96, quality=50, dc=zz[i, :, 0].numpy(),
+            ac=zz[i, :, 1:].numpy()))
+        assert np.array_equal(pix[i].numpy(), want)
+
+
+def test_exact_decode_on_the_card_counts_flagged_and_opens_no_nonzero(cuda):
+    """``api.decompress_batch`` of the corpus on the card: 49 images on
+    the kernel leg through one ``exact_inverse`` launch, the oracle's
+    pixels; traced, no ``aten::nonzero``, no recompute stage, and the
+    transform span's ``flagged`` is the plain version's count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    corpus = synthetic_corpus(49, 512)
+    streams = compress_batch(corpus, 50, block_index=True, device=cuda)
+    eng = Engine("exact", cuda)
+    eng.decompress_batch(streams)  # built and warm
+    before = exact_inverse.launches
+    out = decompress_batch(streams)
+    assert exact_inverse.launches == before + 1
+    for i in (0, 24, 48):
+        assert np.array_equal(out[i], container.decompress(streams[i]))
+    got = eng.decompress_batch(streams)
+    assert eng.decode_stats == {"kernel": 49, "host_entropy": 0,
+                                "host_decoder": 0}
+    assert np.array_equal(got, out)
+    spans_before = {r.span_id for r in profiling.spans()[0]}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced = decompress_batch(streams)
+    assert np.array_equal(traced, out)
+    names = {e.key for e in prof.key_averages()}
+    assert "aten::nonzero" not in names
+    recs = [r for r in profiling.spans()[0] if r.span_id not in spans_before]
+    assert not any(r.name == "codec.decode.recompute" for r in recs)
+    (stage,) = [r for r in recs if r.name == "codec.decode.transform"]
+    _, plain = exact_inverse.exact_inverse_plain(
+        _stream_rows(streams), 512, 512, DecodeTables.build(50, False, "cpu"))
+    assert stage.counts == {"flagged": int(plain)} and int(plain) > 0

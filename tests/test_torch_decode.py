@@ -15,6 +15,7 @@ from tinyimgcodec_tpu.ops import transform as jtransform
 from tinyimgcodec_tpu_torch import container as tcontainer
 from tinyimgcodec_tpu_torch import tables as ttables
 from tinyimgcodec_tpu_torch.engine import Engine
+from tinyimgcodec_tpu_torch.ops import exact_inverse as tinverse
 from tinyimgcodec_tpu_torch.ops import transform as ttransform
 
 from conftest import synthetic_image
@@ -66,8 +67,7 @@ def test_decode_blocks_fast_within_one_level_of_jax(quality):
     pixels."""
     stream = tcontainer.compress(IMGS[0], quality)
     zz, _ = _zz_abs(stream)
-    mine = ttransform.decode_blocks(torch.from_numpy(zz), quality,
-                                    ttransform.FAST).numpy()
+    mine = ttransform.decode_blocks(torch.from_numpy(zz), quality).numpy()
     theirs = np.asarray(jtransform.decode_blocks(zz, quality,
                                                  jtransform.FAST))
     assert mine.shape == theirs.shape == (64, 8, 8) and mine.dtype == np.uint8
@@ -77,6 +77,10 @@ def test_decode_blocks_fast_within_one_level_of_jax(quality):
 
 @pytest.mark.parametrize("case", ["q50", "q95", "q1", "noise", "scaled"])
 def test_decode_blocks_exact_equals_the_oracle_after_recompute(case):
+    """Exact decode's transform (``ops/exact_inverse.py``): the blocks its
+    separable sums leave unflagged already floor as the oracle's; the
+    flagged ones are settled in the oracle's arithmetic, so its pixels,
+    the engine's included, are the oracle's."""
     rng = np.random.RandomState(2)
     if case == "scaled":
         stream = _scaled_stream(IMGS[1])
@@ -85,17 +89,23 @@ def test_decode_blocks_exact_equals_the_oracle_after_recompute(case):
             rng.randint(0, 256, (64, 64)).astype(np.uint8), 90)
     else:
         stream = tcontainer.compress(IMGS[1], int(case[1:]))
-    zz, a = _zz_abs(stream)
+    a = jcontainer.decompress_to_arrays(stream)
+    zz = torch.from_numpy(
+        np.concatenate([a.dc[:, None], a.ac], axis=1).astype(np.int32)[None])
     want = jcontainer.decompress(stream)
-    blocks, flags = ttransform.decode_blocks(
-        torch.from_numpy(zz), a.quality, ttransform.EXACT,
-        scaled_dct=a.scaled_dct, with_flags=True)
+    tables = ttables.DecodeTables.build(a.quality, a.scaled_dct, "cpu")
+    values = tinverse.separable_values(tinverse.dequantized(zz, tables))
+    flags = tinverse.tie_flags(values)
     assert flags.shape == (64,) and flags.dtype == torch.bool
-    got = ttransform.unblockify(blocks, 64, 64).numpy()
+    floor = torch.clamp(torch.floor(values), 0, 255).to(torch.uint8)
+    got = ttransform.unblockify(floor.reshape(64, 8, 8), 64, 64).numpy()
     # unflagged blocks are already the oracle's
     keep = np.repeat(np.repeat(~flags.numpy().reshape(8, 8), 8, 0), 8, 1)
     assert np.array_equal(got[keep], want[keep])
-    # and the engine's recompute settles the rest
+    # and the settle step gives the rest
+    pix, count = tinverse.exact_inverse(zz, 64, 64, tables)
+    assert int(count) == int(flags.sum())
+    assert np.array_equal(pix[0].numpy(), want)
     eng = Engine("exact", "cpu")
     assert np.array_equal(eng.decode_arrays(a), want)
     assert np.array_equal(eng.decompress(stream), want)
@@ -104,13 +114,15 @@ def test_decode_blocks_exact_equals_the_oracle_after_recompute(case):
 def test_exact_flags_mark_values_on_a_floor_boundary():
     """A flat block at quality 50: DC 16 * k decodes to exactly k * 2 + 128,
     an integer -- flagged, unless the clip absorbs it."""
-    zz = np.zeros((3, 64), np.int32)
-    zz[0, 0] = 4       # 136.0: on a boundary
-    zz[1, 0] = 200     # far above 255.5: clipped, no flag
-    zz[2, 1] = 3       # generic values
-    _, flags = ttransform.decode_blocks(torch.from_numpy(zz), 50,
-                                        ttransform.EXACT, with_flags=True)
-    assert flags.tolist() == [True, False, False]
+    zz = np.zeros((1, 3, 64), np.int32)
+    zz[0, :, 0] = [4, 196, -200]  # DPCM: the running DC is 4, 200, 0
+    # block 0: 136.0, on a boundary; block 1: far above 255.5, clipped, no
+    # flag; block 2: generic values
+    zz[0, 2, 1] = 3
+    tables = ttables.DecodeTables.build(50, False, "cpu")
+    values = tinverse.separable_values(
+        tinverse.dequantized(torch.from_numpy(zz), tables))
+    assert tinverse.tie_flags(values).tolist() == [True, False, False]
 
 
 # ------------------------------------------------------ engine and API

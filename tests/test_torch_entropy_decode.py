@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from tinyimgcodec_tpu import constants as jconstants
 from tinyimgcodec_tpu import container as jcontainer
 from tinyimgcodec_tpu.ops import entropy_decode as jed
 from tinyimgcodec_tpu.ops import transform as jtransform
@@ -296,16 +297,26 @@ def test_canonical_tables_equal_jax_and_admission():
 
 
 def test_decode_tables_from_the_jax_arrays_equal_the_ports_own():
-    """The state carried across: both sides built from the same arrays."""
+    """The state carried across: both sides built from the same arrays.
+    Exact mode's dequantization steps are the JAX package's multipliers
+    for a standard stream, and the JAX oracle's three factors (its AAN
+    scales, 2**qfactor, its quality-50 divisors) for a scaled-DCT one."""
     for quality, scaled in ((50, False), (85, False), (2, True)):
         dc, ac = jed._decode_tables()
+        if scaled:
+            steps = np.stack([jconstants.AAN_SCALES,
+                              np.full((8, 8), 2.0 ** quality),
+                              jconstants.quant_divisors(50)])
+        else:
+            steps = np.stack([np.ones((8, 8)), np.ones((8, 8)),
+                              jtransform.dequant_multipliers(quality)])
         theirs = DecodeTables.from_numpy(
-            dc, ac, jtransform._fast_decode_matrix(quality, scaled),
-            jtransform.dequant_multipliers(quality, scaled))
+            dc, ac, jtransform._fast_decode_matrix(quality, scaled), steps)
         mine = DecodeTables.build(quality, scaled, "cpu")
         assert torch.equal(mine.huffman, theirs.huffman)
         assert torch.equal(mine.fast_matrix, theirs.fast_matrix)
-        assert torch.equal(mine.exact_matrix, theirs.exact_matrix)
+        assert torch.equal(mine.dequant, theirs.dequant)
+        assert mine.divides == theirs.divides == scaled
         assert mine.huffman.shape == (2, 307)
 
 

@@ -255,11 +255,11 @@ def test_decode_tables_carry_the_lookup_and_refuse_wide_symbols():
         assert np.array_equal(row, ttables.pack_lookup(
             ttables.first_level_lookup(table), is_dc))
     t8 = DecodeTables.from_numpy(dc, ac, np.zeros((64, 64), np.float32),
-                                 np.ones((8, 8)), lookup_bits=8)
+                                 np.ones((3, 8, 8)), lookup_bits=8)
     assert t8.lookup.shape == (2, 256)
     bad = (dc[0], dc[1], dc[2], np.array([0, 1, 256], np.int32))
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="huffval"):
         DecodeTables.from_numpy(bad, ac, np.zeros((64, 64), np.float32),
-                                np.ones((8, 8)))
+                                np.ones((3, 8, 8)))
     with pytest.raises(ValueError):
         ttables.first_level_lookup(dc, 13)

@@ -16,9 +16,10 @@ from tinyimgcodec_tpu_torch import api, profiling
 from tinyimgcodec_tpu_torch import container as tcontainer
 from tinyimgcodec_tpu_torch.engine import Engine
 from tinyimgcodec_tpu_torch.ops import transform
+from tinyimgcodec_tpu_torch.ops.exact_inverse import exact_inverse_plain
 from tinyimgcodec_tpu_torch.ops.exact_transform import exact_transform
 from tinyimgcodec_tpu_torch.parallel import batch, make_mesh
-from tinyimgcodec_tpu_torch.tables import CodecTables
+from tinyimgcodec_tpu_torch.tables import CodecTables, DecodeTables
 
 from conftest import synthetic_image
 
@@ -117,11 +118,20 @@ def test_decode_spans_count_each_leg_as_decode_stats(block_index):
     assert eng.decode_stats["kernel" if block_index else "host_entropy"] == 2
     stages = ({"prepare", "upload", "entropy"} if block_index
               else {"prepare", "host_entropy"})
-    stages |= {"transform", "recompute", "pull"}
+    stages |= {"transform", "pull"}
     assert {r.name for r in recs if r is not call} == {
         f"codec.decode.{s}" for s in stages}
     assert all(r.call_id == call.call_id for r in recs)
-    assert "flagged" in _one(recs, "codec.decode.recompute").counts
+    # the blocks exact_inverse settled, as its plain version counts them
+    zz = torch.from_numpy(np.stack([
+        np.concatenate([a.dc[:, None], a.ac], axis=1)
+        for a in map(tcontainer.decompress_to_arrays, streams)
+    ]).astype(np.int32))
+    _, want_flagged = exact_inverse_plain(
+        zz, 16, 24, DecodeTables.build(50, False, "cpu"))
+    assert _one(recs, "codec.decode.transform").counts == {
+        "flagged": int(want_flagged)}
+    assert int(want_flagged) >= 1
 
 
 @pytest.mark.parametrize("custom", [False, True],

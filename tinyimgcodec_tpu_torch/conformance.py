@@ -33,7 +33,8 @@ import torch
 from . import api, container, golden, huffman, metrics
 from .device import resolve_device
 from .engine import KERNEL_BLOCK_BITS, Engine
-from .ops import _build, encode1, encode2, entropy_decode, exact_transform
+from .ops import _build, encode1, encode2, entropy_decode, exact_inverse
+from .ops import exact_transform
 from .ops import place
 from .ops import stitch
 from .ops import transform
@@ -53,7 +54,7 @@ TABLE_RANGE = "Huffman table range"
 
 _KERNELS = {"exact_transform": exact_transform, "encode2": encode2,
             "place": place, "encode1": encode1, "stitch": stitch,
-            "entropy_decode": entropy_decode}
+            "entropy_decode": entropy_decode, "exact_inverse": exact_inverse}
 
 
 def contents(h: int, w: int) -> dict[str, np.ndarray]:
@@ -419,7 +420,7 @@ def _digest(*tensors) -> str:
 
 def kernels_vs_plain(images: np.ndarray, quality: int = 50,
                      device: str | torch.device | None = None) -> dict:
-    """Each of the six kernel wrappers against its plain version on the
+    """Each of the seven kernel wrappers against its plain version on the
     same tensors on ``device``, at the shapes ``compress_batch`` of
     ``images`` (B, H, W) gives them (``chip_smoke.py``'s bars):
 
@@ -436,7 +437,9 @@ def kernels_vs_plain(images: np.ndarray, quality: int = 50,
       defines fast mode), and words equal to the plain entropy coding of
       the kernel's own coefficients;
     - ``entropy_decode`` of the images' exact indexed streams: ``zz`` and
-      the chunk flags equal.
+      the chunk flags equal;
+    - ``exact_inverse`` of those rows: the pixels and the count of
+      flagged blocks equal.
 
     Returns ``{"device", "checks", "all_passed", "digests"}``;
     ``digests``: the sha256 of each wrapper's outputs, so that the same
@@ -525,6 +528,12 @@ def kernels_vs_plain(images: np.ndarray, quality: int = 50,
     check("entropy_decode", same(*zip(dk, dp)) and bool(dk[1].all()),
           chunks=int(dk[1].numel()))
     digests["entropy_decode"] = _digest(*dk)
+
+    zb = dk[0].reshape(b, nb, 64)
+    ik = exact_inverse.exact_inverse(zb, h, w, dt)
+    ip = exact_inverse.exact_inverse_plain(zb, h, w, dt)
+    check("exact_inverse", same(*zip(ik, ip)), flagged=int(ik[1]))
+    digests["exact_inverse"] = _digest(*ik)
     return record
 
 

@@ -13,10 +13,12 @@ by what the device or the build did:
 
 - **kernel**: a uniform batch of TICX-indexed streams (standard tables or
   one shared admissible dynamic table) is entropy-decoded on the device,
-  one thread per chunk (``ops/entropy_decode.py``), then undo-DPCM,
-  dequantize + inverse DCT (``ops/transform.py``), a float64 host
-  recompute of the blocks flagged as sitting on a floor boundary, crop,
-  and one pull of the pixels;
+  one thread per chunk (``ops/entropy_decode.py``), then, in exact mode,
+  one kernel from those rows to the cropped pixels (``ops/exact_inverse.py``:
+  running DC, dequantize, inverse DCT, and the blocks flagged as sitting on
+  a floor boundary settled in the oracle's arithmetic on the card), and one
+  pull of the pixels; fast mode runs the plain float32 transform of
+  ``ops/transform.py``;
 - **host decoder**: an image of such a batch with a chunk that failed
   validation (a corrupt stream) is decoded by ``container.decompress``,
   which degrades block by block as the reference does;
@@ -47,9 +49,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from . import container, golden, native, profiling
+from . import container, native, profiling
 from .bitstream import BitWriter, concat_bit_payload
-from .constants import FLAG_CUSTOM_TABLE, FLAG_SCALED_DCT, ZIGZAG_ORDER
+from .constants import FLAG_CUSTOM_TABLE, FLAG_SCALED_DCT
 from .device import resolve_device
 from .golden import CodecArrays
 from .huffman import (
@@ -61,12 +63,13 @@ from .ops.encode2 import fast_coefficients
 from .ops.entropy_decode import (
     chunk_table, entropy_decode_chunks, prepare_batch,
 )
+from .ops.exact_inverse import exact_inverse
 from .pipeline import (
     TableRangeError, compress_batch_device, concat_bits, encode_ranges,
     exact_coefficients, range_blocks, range_coefficients, stream_bytes,
     sub_ranges,
 )
-from .tables import CodecTables, DecodeTables, dequant_multipliers
+from .tables import CodecTables, DecodeTables
 
 # The most blocks one decode launch takes: its coefficient output is
 # indexed in int32 (nb_total * 64 < 2**31, ops/entropy_decode.py).
@@ -74,17 +77,6 @@ MAX_DECODE_BLOCKS = (1 << 31) // 64 - 1
 # The most bits a block may take on the encode kernels: ``encode2``'s row,
 # the ``n * 52``-word capacity retry and its ``MAX_BLOCKS`` assume it.
 KERNEL_BLOCK_BITS = 52 * 32
-
-
-def _host_decode_blocks(zz_rows: np.ndarray, quality: int,
-                        scaled_dct: bool) -> np.ndarray:
-    """(k, 64) zig-zag rows (running DC) -> (k, 8, 8) uint8: the float64
-    oracle's arithmetic, used to settle the flagged blocks."""
-    coeffs = np.zeros((zz_rows.shape[0], 64), np.float64)
-    coeffs[:, ZIGZAG_ORDER] = zz_rows
-    coeffs = coeffs.reshape(-1, 8, 8)
-    pix = golden.block_idct(coeffs * dequant_multipliers(quality, scaled_dct))
-    return np.clip(pix + 128.0, 0.0, 255.0).astype(np.uint8)
 
 
 def compact_coefficients(dc: np.ndarray, ac: np.ndarray):
@@ -337,24 +329,25 @@ class Engine:
     def _pixels(self, zz: torch.Tensor, h: int, w: int, quality: int,
                 scaled: bool, tables: DecodeTables | None = None):
         """(B, nb, 64) int32 coefficients on the device, DC still DPCM'd
-        -> (B, h, w) uint8 numpy; blocks flagged as sitting on a floor
-        boundary are recomputed in float64 on the host."""
-        b, nb, _ = zz.shape
+        -> (B, h, w) uint8 numpy.  Exact: one ``exact_inverse`` launch,
+        which settles the blocks flagged as sitting on a floor boundary on
+        the card; their count, ``flagged`` on the transform span, is read
+        after the pull, and only while the spans record.  Fast: the plain
+        float32 transform."""
+        if tables is None:
+            tables = DecodeTables.build(quality, scaled, zz.device)
+        if self.precision == transform.EXACT:
+            with profiling.span("codec.decode.transform") as stage:
+                imgs, flagged = exact_inverse(zz, h, w, tables)
+            with profiling.span("codec.decode.pull"):
+                out = imgs.cpu().numpy()
+            if profiling.active():
+                stage.set(flagged=int(flagged))
+            return out
         with profiling.span("codec.decode.transform"):
-            zz_abs = transform.undo_dpcm(zz)
-            blocks, flags = transform.decode_blocks(
-                zz_abs, quality, self.precision, scaled_dct=scaled,
-                with_flags=True, tables=tables,
-            )
-        with profiling.span("codec.decode.recompute") as stage:
-            idx = torch.nonzero(flags.reshape(-1)).reshape(-1)  # host sync
-            stage.set(flagged=idx.numel())
-            if idx.numel():
-                rows = zz_abs.reshape(-1, 64)[idx].cpu().numpy()
-                fixed = _host_decode_blocks(rows, quality, scaled)
-                blocks = blocks.reshape(-1, 8, 8)
-                blocks[idx] = torch.from_numpy(fixed).to(blocks.device)
-                blocks = blocks.reshape(b, nb, 8, 8)
+            blocks = transform.decode_blocks(
+                transform.undo_dpcm(zz), quality, scaled_dct=scaled,
+                tables=tables)
         h8 = -(-h // 8) * 8
         w8 = -(-w // 8) * 8
         with profiling.span("codec.decode.pull"):

@@ -7,7 +7,8 @@ kernels (``ops/exact_transform.py``, ``ops/encode2.py``); the encode
 functions here are their yardsticks and the layout helpers around them.
 The decode half (:func:`undo_dpcm`, :func:`decode_blocks`) is the port of
 plain XLA programs of the JAX package -- one matrix product and a few
-elementwise passes -- and is what the decode path runs on the card.
+elementwise passes -- and is what fast-mode decode runs on the card;
+exact-mode decode runs ``ops/exact_inverse.py``.
 
 Two precisions, as in the JAX package:
 
@@ -19,7 +20,8 @@ Two precisions, as in the JAX package:
   sits on a rounding tie may come out one step away there.
 - ``"exact"``: float64 arithmetic (the card has FP64 units, so the JAX
   package's double-float emulation is not needed) with a per-block flag
-  for roundings within 1e-9 of a tie.
+  for roundings within 1e-9 of a tie (encode; decode's is
+  ``ops/exact_inverse.py``).
 """
 
 from __future__ import annotations
@@ -115,44 +117,17 @@ def undo_dpcm(zz: torch.Tensor) -> torch.Tensor:
     return torch.cat([dc[..., None], zz[..., 1:]], dim=-1)
 
 
-# a decoded value this close to an integer may floor differently in the
-# oracle's float64 arithmetic (scipy's inverse DCT sums in another order)
-FLOOR_TIE_EPS = 1e-9
-
-
 def decode_blocks(
     zz: torch.Tensor,
     quality: int,
-    precision: str = EXACT,
     scaled_dct: bool = False,
-    with_flags: bool = False,
     tables: DecodeTables | None = None,
-):
-    """(..., nb, 64) int32 zig-zag coefficients (DC already un-DPCM'd) ->
-    (..., nb, 8, 8) uint8 pixel blocks.
-
-    Fast: one float32 (64, 64) matrix product, ``floor(clip(x + 128))``.
-    Exact: the same product in float64, ``floor`` then clip.  With
-    ``with_flags=True`` also a per-block bool: in exact mode it marks
-    blocks holding a value within 1e-9 of an integer inside (0.5, 255.5),
-    where the float64 host oracle might floor the other way (such blocks
-    are recomputed by it); in fast mode it is all False.
-    """
+) -> torch.Tensor:
+    """Fast mode: (..., nb, 64) int32 zig-zag coefficients (DC already
+    un-DPCM'd) -> (..., nb, 8, 8) uint8 pixel blocks, one float32 (64, 64)
+    matrix product, ``floor(clip(x + 128))``."""
     if tables is None:
         tables = DecodeTables.build(quality, scaled_dct, zz.device)
-    lead = zz.shape[:-1]
-    if precision == FAST:
-        x = zz.to(torch.float32) @ tables.fast_matrix
-        pix = torch.floor(torch.clamp(x + 128.0, 0.0, 255.0))
-        flags = torch.zeros(lead, dtype=torch.bool, device=zz.device)
-    elif precision == EXACT:
-        x = zz.to(torch.float64) @ tables.exact_matrix + 128.0
-        near = (x - torch.round(x)).abs() < FLOOR_TIE_EPS
-        flags = (near & (x > 0.5) & (x < 255.5)).any(dim=-1)
-        pix = torch.clamp(torch.floor(x), 0.0, 255.0)
-    else:
-        raise ValueError(f"unknown precision {precision!r}")
-    out = pix.to(torch.uint8).reshape(*lead, 8, 8)
-    if with_flags:
-        return out, flags
-    return out
+    x = zz.to(torch.float32) @ tables.fast_matrix
+    pix = torch.floor(torch.clamp(x + 128.0, 0.0, 255.0))
+    return pix.to(torch.uint8).reshape(*zz.shape[:-1], 8, 8)

@@ -31,9 +31,10 @@ The spans and their counts (``README.md``, "Tracing the port"):
   itself, fast mode), ``.place`` (``retried``: 1 when the stream was assembled again at the
   worst-case capacity), ``.pull``, ``.assemble``;
 - decode stages (``engine.py``): ``codec.decode.prepare``, ``.upload``,
-  ``.entropy``, ``.transform``, ``.recompute`` (``flagged``: the blocks
-  recomputed in float64 on the host), ``.pull``, ``.fallback``
-  (``images``: those the host decoder took), ``.host_entropy``.
+  ``.entropy``, ``.transform`` (``flagged``, exact mode: the tie-flagged
+  blocks ``exact_inverse`` settled on the device, read after ``.pull``),
+  ``.pull``, ``.fallback`` (``images``: those the host decoder took),
+  ``.host_entropy``.
 
 The outermost span of a call takes a fresh call id, which every span
 nested in it records, with its parent's span id; a ``LocalMesh`` runs each

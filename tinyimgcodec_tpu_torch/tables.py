@@ -194,6 +194,20 @@ def dequant_multipliers(quality: int, scaled_dct: bool = False) -> np.ndarray:
     return quant_divisors(quality)
 
 
+def dequant_steps(quality: int, scaled_dct: bool = False) -> np.ndarray:
+    """The float64 oracle's dequantization (``golden.decode_arrays``) as
+    three (8, 8) steps, row-major: a coefficient becomes ``c / steps[0] *
+    steps[1] * steps[2]``, one rounding a step.  Normal streams: 1, 1 and
+    the quantization divisors (the two ones are exact, so ``c *
+    divisors``); ``scaled_dct`` streams: the AAN scales, ``2**qfactor`` and
+    the quality-50 divisors."""
+    if scaled_dct:
+        return np.stack([AAN_SCALES, np.full((8, 8), float(2 ** quality)),
+                         quant_divisors(50)])
+    return np.stack([np.ones((8, 8)), np.ones((8, 8)),
+                     quant_divisors(quality)])
+
+
 def decode_matrix(multipliers: np.ndarray) -> np.ndarray:
     """Fused (64, 64) float64 matrix [zig-zag coefficient, pixel]:
     dequantize + inverse DCT, giving pixel values - 128."""
@@ -317,17 +331,21 @@ class DecodeTables:
     ``huffman``: (2, 307) int32, for DC then AC ``[mincode (17), maxcode
     (17), valptr (17), huffval (256, zero-padded)]`` -- the entropy decode
     kernel's table argument, the same layout for the standard tables and
-    for a stream's own.  ``fast_matrix`` / ``exact_matrix``: the fused
-    dequantize + inverse-DCT matrix [zig-zag coefficient, pixel] in
-    float32 and float64.  ``lookup``: (2, 2**bits) int32, the first-level
-    table of :func:`first_level_lookup` for DC then AC in the packed form
-    of :func:`pack_lookup`, derived from ``huffman`` once per batch so
-    that the kernel answers most symbols with one shared-memory read.
+    for a stream's own.  ``fast_matrix``: the fused dequantize +
+    inverse-DCT matrix [zig-zag coefficient, pixel] in float32 (fast
+    mode).  ``dequant``: (3, 64) float64, the :func:`dequant_steps` of
+    exact mode, and ``divides``: whether its first two rows are not all
+    ones (a scaled-DCT stream).  ``lookup``: (2, 2**bits) int32, the
+    first-level table of :func:`first_level_lookup` for DC then AC in the
+    packed form of :func:`pack_lookup`, derived from ``huffman`` once per
+    batch so that the kernel answers most symbols with one shared-memory
+    read.
     """
 
     huffman: torch.Tensor
     fast_matrix: torch.Tensor
-    exact_matrix: torch.Tensor
+    dequant: torch.Tensor
+    divides: bool
     lookup: torch.Tensor
 
     @property
@@ -335,14 +353,14 @@ class DecodeTables:
         return self.huffman.device
 
     @classmethod
-    def from_numpy(cls, dc_table, ac_table, fast_matrix, multipliers,
+    def from_numpy(cls, dc_table, ac_table, fast_matrix, steps,
                    device: str | torch.device = "cpu",
                    lookup_bits: int = LOOKUP_BITS) -> "DecodeTables":
         """``dc_table`` / ``ac_table``: ``(mincode, maxcode, valptr,
         huffval)`` tuples as :func:`standard_decode_tables` or
         ``ops.entropy_decode.canonical_tables`` return them;
-        ``fast_matrix`` (64, 64) float32; ``multipliers`` (8, 8) float64
-        (:func:`dequant_multipliers`).  Symbols are bytes: a ``huffval``
+        ``fast_matrix`` (64, 64) float32; ``steps`` (3, 8, 8) float64
+        (:func:`dequant_steps`).  Symbols are bytes: a ``huffval``
         outside 0..255 is refused."""
         dev = torch.device(device)
         rows = []
@@ -367,7 +385,9 @@ class DecodeTables:
             fast_matrix=torch.from_numpy(
                 np.ascontiguousarray(fast_matrix, np.float32).copy()
             ).reshape(64, 64).to(dev),
-            exact_matrix=torch.from_numpy(decode_matrix(multipliers)).to(dev),
+            dequant=torch.from_numpy(
+                np.array(steps, np.float64).reshape(3, 64)).to(dev),
+            divides=bool((np.asarray(steps)[:2] != 1.0).any()),
         )
 
     @classmethod
@@ -383,7 +403,7 @@ class DecodeTables:
             )
         return cls.from_numpy(
             *huffman, fast_decode_matrix(int(quality), bool(scaled_dct)),
-            dequant_multipliers(int(quality), bool(scaled_dct)), device=device,
+            dequant_steps(int(quality), bool(scaled_dct)), device=device,
         )
 
 

@@ -317,8 +317,7 @@ def decode_pass(prep: dict, args: list, tables: DecodeTables):
         *args, prep["nb_total"], tables)
     zz_abs = transform.undo_dpcm(zz.reshape(-1, nb, 64))
     blocks = transform.decode_blocks(
-        zz_abs, quality, transform.FAST, scaled_dct=prep["scaled_dct"],
-        tables=tables)
+        zz_abs, quality, scaled_dct=prep["scaled_dct"], tables=tables)
     return transform.unblockify(blocks, -(-h // 8) * 8, -(-w // 8) * 8), ok
 
 
@@ -366,8 +365,7 @@ def bench_decode_device(arrays: list, k: int = K_TRANSFORM,
     def step():
         zz = widen_coefficients(*narrow, dev)
         blocks = transform.decode_blocks(
-            transform.undo_dpcm(zz), int(a0.quality), transform.FAST,
-            tables=tables)
+            transform.undo_dpcm(zz), int(a0.quality), tables=tables)
         return (transform.unblockify(blocks, h8, w8),)
 
     eager, out, ms = replay(step, k, reps, dev)
