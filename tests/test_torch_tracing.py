@@ -5,6 +5,7 @@ profiler's events, the bounded buffer, and the benchmark's reduction of the
 profiler's timeline naming them."""
 
 import json
+import os
 from collections import deque
 
 import numpy as np
@@ -14,7 +15,8 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from tinyimgcodec_tpu_torch import api, profiling
 from tinyimgcodec_tpu_torch import container as tcontainer
-from tinyimgcodec_tpu_torch.engine import Engine
+from tinyimgcodec_tpu_torch.engine import Engine, compact_coefficients
+from tinyimgcodec_tpu_torch.golden import CodecArrays
 from tinyimgcodec_tpu_torch.ops import transform
 from tinyimgcodec_tpu_torch.ops.exact_inverse import exact_inverse_plain
 from tinyimgcodec_tpu_torch.ops.exact_transform import exact_transform
@@ -117,7 +119,7 @@ def test_decode_spans_count_each_leg_as_decode_stats(block_index):
     assert call.counts == eng.decode_stats
     assert eng.decode_stats["kernel" if block_index else "host_entropy"] == 2
     stages = ({"prepare", "upload", "entropy"} if block_index
-              else {"prepare", "host_entropy"})
+              else {"prepare", "host_entropy", "compact", "upload"})
     stages |= {"transform", "pull"}
     assert {r.name for r in recs if r is not call} == {
         f"codec.decode.{s}" for s in stages}
@@ -148,6 +150,57 @@ def test_prepare_counts_the_streams_and_the_payloads_it_realigned(custom):
     assert _one(recs, "codec.decompress_batch").counts["kernel"] == 3
     assert _one(recs, "codec.decode.prepare").counts == {
         "streams": 3, "realigned": 3 if custom else 0}
+
+
+@pytest.mark.parametrize("n, h, w, quality", [
+    (3, 16, 24, 10), (3, 13, 29, 50), (1, 37, 21, 90)],
+    ids=["16x24-q10", "13x29-q50", "37x21-q90-one"])
+def test_the_host_entropy_stages_count_what_compact_coefficients_gives(
+        n, h, w, quality):
+    images = _images(n, h, w)
+    # a block of a hard edge: AC values past int8 at q90
+    images[:, :8, 8:12], images[:, :8, 12:16] = 0, 255
+    streams = api.compress_batch(images, quality, block_index=False,
+                                 device="cpu")
+    _, recs, _ = _traced(lambda: api.decompress_batch(streams,
+                                                      device="cpu"))
+    call = _one(recs, "codec.decompress_batch")
+    assert call.counts["host_entropy"] == n
+    order = sorted((r for r in recs if r is not call),
+                   key=lambda r: r.start_ns)
+    assert [r.name for r in order] == [f"codec.decode.{s}" for s in (
+        "prepare", "host_entropy", "compact", "upload", "transform",
+        "pull")]
+    for a, b in zip(order, order[1:]):
+        assert a.end_ns <= b.start_ns
+    assert _one(recs, "codec.decode.host_entropy").counts == {
+        "streams": n, "threads": min(n, os.cpu_count() or 1)}
+    arrays = [tcontainer.decompress_to_arrays(s) for s in streams]
+    _, ac_n, idx, _ = compact_coefficients(
+        np.stack([a.dc for a in arrays]), np.stack([a.ac for a in arrays]))
+    assert _one(recs, "codec.decode.compact").counts == {
+        "outliers": idx.size, "wide": int(ac_n.dtype == np.int16)}
+    if quality == 90:
+        assert idx.size > 0
+
+
+def test_decode_arrays_records_the_int16_form_as_wide():
+    """More than ``ac.size // 8`` AC values outside int8: the AC goes up as
+    int16 with no outliers, and ``compact`` says so."""
+    rng = np.random.default_rng(7)
+    dc = rng.integers(-40, 41, 12).astype(np.int32)
+    ac = rng.integers(-1023, 1024, (12, 63)).astype(np.int32)
+    assert int((ac != ac.astype(np.int8)).sum()) > ac.size // 8
+    arrays = CodecArrays(24, 32, 50, dc, ac)
+    eng = Engine("exact", "cpu")
+    want = eng.decode_arrays(arrays)
+    got, recs, _ = _traced(lambda: eng.decode_arrays(arrays))
+    assert np.array_equal(got, want)
+    assert [r.name for r in sorted(recs, key=lambda r: r.start_ns)] == [
+        f"codec.decode.{s}" for s in ("compact", "upload", "transform",
+                                      "pull")]
+    assert _one(recs, "codec.decode.compact").counts == {"outliers": 0,
+                                                         "wide": 1}
 
 
 def test_a_local_mesh_records_each_shard_in_the_callers_call():

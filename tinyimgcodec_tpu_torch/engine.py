@@ -34,7 +34,10 @@ A uniform batch of more than ``MAX_DECODE_BLOCKS`` blocks is decoded on
 the kernel leg in sub-batches cut at image boundaries.
 
 ``decode_stats`` counts the images each leg took in the last call.  Each
-decode stage is a ``codec.decode.*`` span of ``profiling.span``.
+decode stage is a ``codec.decode.*`` span of ``profiling.span``; the
+host-entropy leg's are ``.host_entropy`` (the C decodes), ``.compact``
+and ``.upload`` (the narrow copies and the widening), then the transform
+and the pull as on the kernel leg.
 
 ``encode_to_words`` gives an image's per-block code words and bit counts
 (the ``encode1`` kernel), from which a TICX trailer of any stride can be
@@ -128,6 +131,12 @@ def widen_coefficients(dc16: torch.Tensor, acN: torch.Tensor,
     return out
 
 
+def host_entropy_workers(n_streams: int) -> int:
+    """The threads :func:`host_entropy_arrays` decodes ``n_streams`` on:
+    one a stream, at most one a core."""
+    return min(n_streams, os.cpu_count() or 1)
+
+
 def host_entropy_arrays(streams: list[bytes]) -> list[CodecArrays]:
     """The entropy stage of the host-entropy leg: each stream through the
     C decoder of ``native`` (``container.decompress_to_arrays``)."""
@@ -136,8 +145,7 @@ def host_entropy_arrays(streams: list[bytes]) -> list[CodecArrays]:
     # one C decode a stream, concurrently (the ctypes call releases the
     # GIL); no TICX threads inside them, which would oversubscribe the
     # cores
-    workers = min(len(streams), os.cpu_count() or 1)
-    with ThreadPoolExecutor(workers) as pool:
+    with ThreadPoolExecutor(host_entropy_workers(len(streams))) as pool:
         return list(pool.map(
             lambda d: container.decompress_to_arrays(d, index_workers=1),
             streams))
@@ -410,13 +418,18 @@ class Engine:
 
     def _upload_arrays(self, arrays: list[CodecArrays]) -> torch.Tensor:
         """Host-decoded coefficient arrays of equal shape -> (B, nb, 64)
-        int32 on the device: compacted on the host, uploaded narrow,
-        widened there."""
+        int32 on the device: compacted on the host (``codec.decode.compact``,
+        counts ``outliers`` and ``wide``: 1 where the AC goes up as int16),
+        uploaded narrow and widened there (``codec.decode.upload``)."""
         dev = self.device
-        narrow = compact_coefficients(np.stack([a.dc for a in arrays]),
-                                      np.stack([a.ac for a in arrays]))
-        return widen_coefficients(
-            *(torch.from_numpy(x).to(dev) for x in narrow), dev)
+        with profiling.span("codec.decode.compact") as stage:
+            narrow = compact_coefficients(np.stack([a.dc for a in arrays]),
+                                          np.stack([a.ac for a in arrays]))
+            stage.set(outliers=int(narrow[2].size),
+                      wide=int(narrow[1].dtype == np.int16))
+        with profiling.span("codec.decode.upload"):
+            return widen_coefficients(
+                *(torch.from_numpy(x).to(dev) for x in narrow), dev)
 
     def _arrays_pixels(self, arrays: list[CodecArrays],
                        zz: torch.Tensor) -> np.ndarray:
@@ -447,9 +460,11 @@ class Engine:
             out = self._decompress_batch_device(streams)
             if out is not None:
                 return out
-        with profiling.span("codec.decode.host_entropy"):
+        with profiling.span("codec.decode.host_entropy") as stage:
             arrays = host_entropy_arrays(streams)
-            zz = self._upload_arrays(arrays)
+            stage.set(streams=len(streams),
+                      threads=host_entropy_workers(len(streams)))
+        zz = self._upload_arrays(arrays)
         self.decode_stats["host_entropy"] += len(streams)
         return self._arrays_pixels(arrays, zz)
 

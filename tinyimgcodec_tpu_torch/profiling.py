@@ -33,8 +33,11 @@ The spans and their counts (``README.md``, "Tracing the port"):
 - decode stages (``engine.py``): ``codec.decode.prepare``, ``.upload``,
   ``.entropy``, ``.transform`` (``flagged``, exact mode: the tie-flagged
   blocks ``exact_inverse`` settled on the device, read after ``.pull``),
-  ``.pull``, ``.fallback`` (``images``: those the host decoder took),
-  ``.host_entropy``.
+  ``.pull``, ``.fallback`` (``images``: those the host decoder took);
+  on the host-entropy leg ``.host_entropy`` (``streams``, and ``threads``:
+  the C decoder's pool), ``.compact`` (``outliers``: the AC values sent
+  apart; ``wide``: 1 where the AC goes up as int16), then ``.upload``
+  (the narrow copies and the widening).
 
 The outermost span of a call takes a fresh call id, which every span
 nested in it records, with its parent's span id; a ``LocalMesh`` runs each
