@@ -59,9 +59,9 @@ The engine's last two pieces: ``Engine.encode_to_words`` on the corpus
 and the 7680x4320 image (phase ``encode_to_words``: the stitched words
 are the oracle's payload in exact mode, the fast stream's in fast mode),
 and the host-entropy leg on a batch, the 49 corpus streams without their
-trailers, with the narrow upload of ``engine.compact_coefficients``
-(phase ``host_legs``: the oracle's pixels in exact mode, the bytes
-uploaded, the leg's stages each timed alone).
+trailers, with the narrow upload the C decoder writes
+(``engine.host_entropy_rows``; phase ``host_legs``: the oracle's pixels
+in exact mode, the bytes uploaded, the leg's stages each timed alone).
 
 The passes that ``torch_bench.py`` replays from CUDA graphs (phase
 ``bench``): the corpus encode fast and exact, the full decode of the

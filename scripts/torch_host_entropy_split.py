@@ -7,13 +7,19 @@ Run from the root of a checkout, on a machine with an NVIDIA card:
     python3 scripts/torch_host_entropy_split.py [--out FILE] [--reps N]
 
 The leg decodes streams without a TICX trailer: the C decoder of
-``native`` on a pool of threads, one stream a thread, then the transform
-on the card.  On the 49 corpus streams (512x512, q=50, exact, trailers
-cut) it times, each stage alone (host clock around a synchronised call,
-median of ``--reps`` after a warm call):
+``native`` on a pool of threads, then the transform on the card.  On the
+49 corpus streams (512x512, q=50, exact, trailers cut) it times, each
+stage alone (host clock around a synchronised call, median of ``--reps``
+after a warm call):
 
-- ``c_decode_pool``: the entropy decode of every stream on the pool;
-- ``compaction``: the host arrays into the upload form;
+- ``c_decode_pool``: the entropy decode of every stream on the pool:
+  where the engine has ``host_entropy_rows``, the batch entry point
+  writing the narrow rows (one C call a worker, each taking the next
+  stream),
+  else one ``container.decompress_to_arrays`` a stream into int32 arrays;
+- ``compaction``: what the decode gives into the upload form: the
+  streams' outlier lists joined (``join_outliers``), else
+  ``compact_coefficients`` over the ``np.stack`` of the arrays;
 - ``upload``: that form to the card (pageable memory);
 - ``widen_and_transform``: the widening (narrow form only), then in
   exact mode ``exact_inverse`` (one kernel to the cropped pixels, the
@@ -22,7 +28,8 @@ median of ``--reps`` after a warm call):
 - ``pull``: the pixels to the host;
 
 beside the engine's whole call (``Engine(precision).decompress_batch``)
-and the bytes the upload moves.  The upload form is the tree's: the
+and the bytes the upload moves.  The decode and the upload form are the
+tree's: ``decode`` says which of the two decodes ran; the form is the
 narrow one (int16 DC, int8 AC and the outliers) where the engine has
 ``compact_coefficients``, else the (B, nb, 64) int32 of
 ``stack_coefficients``, so the same script runs on an older tree of the
@@ -51,6 +58,9 @@ sys.path.insert(0, os.getcwd())
 import tinyimgcodec_tpu_torch as codec  # noqa: E402
 from tinyimgcodec_tpu_torch import container  # noqa: E402
 from tinyimgcodec_tpu_torch import engine as engine_mod  # noqa: E402
+from tinyimgcodec_tpu_torch.constants import (  # noqa: E402
+    FLAG_CUSTOM_TABLE, FLAG_SCALED_DCT,
+)
 from tinyimgcodec_tpu_torch.ops import transform  # noqa: E402
 from tinyimgcodec_tpu_torch.ops.exact_inverse import (  # noqa: E402
     exact_inverse,
@@ -76,9 +86,15 @@ def host_ms(fn, reps: int, dev: torch.device) -> float:
     return float(np.median(times[1:]))
 
 
+def batch_rows() -> bool:
+    return hasattr(engine_mod, "host_entropy_rows")
+
+
 def c_decode(streams: list[bytes]):
     """The leg's entropy stage: the engine's own where it has one, else
     what the engine did before it was one function (the same pool)."""
+    if batch_rows():
+        return engine_mod.host_entropy_rows(streams)
     fn = getattr(engine_mod, "host_entropy_arrays", None)
     if fn is not None:
         return fn(streams)
@@ -93,13 +109,16 @@ def narrow_form() -> bool:
     return hasattr(engine_mod, "compact_coefficients")
 
 
-def compact(arrays) -> list[np.ndarray]:
-    """The host arrays -> the tree's upload form (a list of arrays)."""
+def compact(decoded) -> list[np.ndarray]:
+    """What ``c_decode`` gave -> the tree's upload form (a list of
+    arrays)."""
+    if batch_rows():
+        return list(engine_mod.join_outliers(decoded))
     if narrow_form():
         return list(engine_mod.compact_coefficients(
-            np.stack([a.dc for a in arrays]),
-            np.stack([a.ac for a in arrays])))
-    return [engine_mod.stack_coefficients(arrays)]
+            np.stack([a.dc for a in decoded]),
+            np.stack([a.ac for a in decoded])))
+    return [engine_mod.stack_coefficients(decoded)]
 
 
 def upload(form: list[np.ndarray], dev: torch.device) -> list[torch.Tensor]:
@@ -115,12 +134,12 @@ def widen(on_dev: list[torch.Tensor], dev: torch.device) -> torch.Tensor:
 def host_entropy_stages(streams: list[bytes], precision: str,
                         dev: torch.device, reps: int) -> dict:
     """The stage split of the leg on ``streams`` (uniform, no trailer)."""
-    arrays = c_decode(streams)
-    a0 = arrays[0]
-    h, w, quality = a0.height, a0.width, int(a0.quality)
+    decoded = c_decode(streams)
+    h, w, quality, flag = container.parse_header(streams[0])
+    scaled = bool(flag & FLAG_SCALED_DCT) and not flag & FLAG_CUSTOM_TABLE
     h8, w8 = -(-h // 8) * 8, -(-w // 8) * 8
-    tables = DecodeTables.build(quality, bool(a0.scaled_dct), dev)
-    form = compact(arrays)
+    tables = DecodeTables.build(quality, scaled, dev)
+    form = compact(decoded)
     on_dev = upload(form, dev)
 
     def xform():
@@ -129,7 +148,7 @@ def host_entropy_stages(streams: list[bytes], precision: str,
             return exact_inverse(zz, h, w, tables)
         blocks = transform.decode_blocks(
             transform.undo_dpcm(zz), quality,
-            scaled_dct=bool(a0.scaled_dct), tables=tables)
+            scaled_dct=scaled, tables=tables)
         return transform.unblockify(blocks, h8, w8)[:, :h, :w], None
 
     pixels, flagged = xform()
@@ -137,7 +156,7 @@ def host_entropy_stages(streams: list[bytes], precision: str,
     eng = engine_mod.Engine(precision, dev)
     stages = {
         "c_decode_pool_ms": host_ms(lambda: c_decode(streams), reps, dev),
-        "compaction_ms": host_ms(lambda: compact(arrays), reps, dev),
+        "compaction_ms": host_ms(lambda: compact(decoded), reps, dev),
         "upload_ms": host_ms(lambda: upload(form, dev), reps, dev),
         "widen_and_transform_ms": host_ms(xform, reps, dev),
         "pull_ms": host_ms(
@@ -148,7 +167,8 @@ def host_entropy_stages(streams: list[bytes], precision: str,
         raise SystemExit(f"the streams took {eng.decode_stats}")
     return {
         "precision": precision, "form": "narrow" if narrow_form() else
-        "int32", "images": len(streams), "shape": [h, w],
+        "int32", "decode": "batch_rows" if batch_rows() else
+        "per_stream_arrays", "images": len(streams), "shape": [h, w],
         "upload_bytes": int(sum(x.nbytes for x in form)),
         "int32_form_bytes": len(streams) * (h8 // 8) * (w8 // 8) * 64 * 4,
         "upload_dtypes": [str(x.dtype) for x in form],
@@ -193,8 +213,10 @@ def main() -> None:
         lines.append(host_entropy_stages(streams, precision, dev, args.reps))
     import torch_bench
 
-    samples, _ = torch_bench.bench_decode_device(c_decode(streams), k=100,
-                                                 dev=dev, reps=args.reps)
+    arrays = [container.decompress_to_arrays(s, index_workers=1)
+              for s in streams]
+    samples, _ = torch_bench.bench_decode_device(arrays, k=100, dev=dev,
+                                                 reps=args.reps)
     lines.append({"decode/device_MP_per_s": samples,
                   "median": float(np.median(samples)) if samples else None})
     out = "\n".join(json.dumps(x) for x in lines)

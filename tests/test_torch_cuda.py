@@ -1059,25 +1059,39 @@ def test_bench_graph_replays_equal_eager_passes_at_the_corpus_shape(cuda):
     assert torch.equal(pixels, pixels2)
 
 
-def test_host_entropy_leg_on_the_card_equals_the_oracle(cuda):
-    """The corpus streams without trailers: C decodes on the host, the
-    narrow upload widened on the card, the transform there; the pixels
-    are the oracle's, and the upload is int16 DC and int8 AC."""
+def test_host_entropy_leg_on_the_card_equals_the_oracle(cuda, monkeypatch):
+    """The corpus streams without trailers at q=50, and eight of them at
+    q=95 (AC values past int8: the outliers are added on the card): the C
+    decoder writes the narrow rows on the host, they are widened on the
+    card and transformed there; the pixels are the oracle's, and the
+    upload is int16 DC and int8 AC."""
     from tinyimgcodec_tpu_torch import engine as tengine
     from tinyimgcodec_tpu_torch.corpus import synthetic_corpus
 
+    uploaded = []
+    real = tengine.widen_coefficients
+
+    def spy(*args):
+        uploaded.append(tuple(args[:4]))
+        return real(*args)
+
+    monkeypatch.setattr(tengine, "widen_coefficients", spy)
     corpus = synthetic_corpus(49, 512)
-    streams = compress_batch(corpus, 50, block_index=False, device=cuda)
-    eng = Engine("exact", cuda)
-    got = eng.decompress_batch(streams)
-    assert eng.decode_stats == {"kernel": 0, "host_entropy": 49,
-                                "host_decoder": 0}
-    for g, s in zip(got, streams):
-        assert np.array_equal(g, container.decompress(s))
-    arrays = tengine.host_entropy_arrays(streams)
-    narrow = tengine.compact_coefficients(np.stack([a.dc for a in arrays]),
-                                          np.stack([a.ac for a in arrays]))
-    assert narrow[0].dtype == np.int16 and narrow[1].dtype == np.int8
+    for quality, images in ((50, corpus), (95, corpus[:8])):
+        streams = compress_batch(images, quality, block_index=False,
+                                 device=cuda)
+        eng = Engine("exact", cuda)
+        uploaded.clear()
+        got = eng.decompress_batch(streams)
+        assert eng.decode_stats == {"kernel": 0,
+                                    "host_entropy": len(streams),
+                                    "host_decoder": 0}
+        for g, s in zip(got, streams):
+            assert np.array_equal(g, container.decompress(s))
+        (dc16, ac_n, idx, _), = uploaded
+        assert dc16.dtype == torch.int16 and ac_n.dtype == torch.int8
+        assert dc16.device.type == "cuda"
+        assert (idx.numel() > 0) == (quality == 95)
 
 
 @pytest.mark.parametrize("quality", [50, 95])

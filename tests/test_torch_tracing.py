@@ -152,16 +152,32 @@ def test_prepare_counts_the_streams_and_the_payloads_it_realigned(custom):
         "streams": 3, "realigned": 3 if custom else 0}
 
 
+def _dense_streams(n, h, w):
+    """Streams of hand-made coefficients, |AC| up to 1023 in most places
+    (the standard tables code them): more than an eighth of each stream's
+    AC outside int8, so the batch goes up as int16."""
+    rng = np.random.default_rng(11)
+    nb = -(-h // 8) * -(-w // 8)
+    return [tcontainer.compress_arrays(CodecArrays(
+        h, w, 50, rng.integers(-40, 41, nb).astype(np.int32),
+        rng.integers(-1023, 1024, (nb, 63)).astype(np.int32)))
+        for _ in range(n)]
+
+
 @pytest.mark.parametrize("n, h, w, quality", [
-    (3, 16, 24, 10), (3, 13, 29, 50), (1, 37, 21, 90)],
-    ids=["16x24-q10", "13x29-q50", "37x21-q90-one"])
+    (3, 16, 24, 10), (3, 13, 29, 50), (1, 37, 21, 90), (2, 16, 16, None)],
+    ids=["16x24-q10", "13x29-q50", "37x21-q90-one", "16x16-int16"])
 def test_the_host_entropy_stages_count_what_compact_coefficients_gives(
         n, h, w, quality):
-    images = _images(n, h, w)
-    # a block of a hard edge: AC values past int8 at q90
-    images[:, :8, 8:12], images[:, :8, 12:16] = 0, 255
-    streams = api.compress_batch(images, quality, block_index=False,
-                                 device="cpu")
+    """``quality`` None: the streams of ``_dense_streams``."""
+    if quality is None:
+        streams = _dense_streams(n, h, w)
+    else:
+        images = _images(n, h, w)
+        # a block of a hard edge: AC values past int8 at q90
+        images[:, :8, 8:12], images[:, :8, 12:16] = 0, 255
+        streams = api.compress_batch(images, quality, block_index=False,
+                                     device="cpu")
     _, recs, _ = _traced(lambda: api.decompress_batch(streams,
                                                       device="cpu"))
     call = _one(recs, "codec.decompress_batch")
@@ -173,15 +189,20 @@ def test_the_host_entropy_stages_count_what_compact_coefficients_gives(
         "pull")]
     for a, b in zip(order, order[1:]):
         assert a.end_ns <= b.start_ns
-    assert _one(recs, "codec.decode.host_entropy").counts == {
-        "streams": n, "threads": min(n, os.cpu_count() or 1)}
     arrays = [tcontainer.decompress_to_arrays(s) for s in streams]
     _, ac_n, idx, _ = compact_coefficients(
         np.stack([a.dc for a in arrays]), np.stack([a.ac for a in arrays]))
+    wide = int(ac_n.dtype == np.int16)
+    # ``narrow``: the streams whose int8 rows the C decoder wrote and
+    # that were not decoded again as int16
+    assert _one(recs, "codec.decode.host_entropy").counts == {
+        "streams": n, "threads": min(n, os.cpu_count() or 1),
+        "narrow": 0 if wide else n}
     assert _one(recs, "codec.decode.compact").counts == {
-        "outliers": idx.size, "wide": int(ac_n.dtype == np.int16)}
+        "outliers": idx.size, "wide": wide}
     if quality == 90:
         assert idx.size > 0
+    assert wide == (quality is None)
 
 
 def test_decode_arrays_records_the_int16_form_as_wide():

@@ -23,6 +23,7 @@ the CUDA pipeline's exact mode produces identical bytes (tested).
 from __future__ import annotations
 
 import struct
+from typing import NamedTuple
 
 import numpy as np
 
@@ -277,6 +278,75 @@ def _read_code(reader: BitReader, inverse: dict[str, object]):
     raise ValueError("invalid Huffman code")
 
 
+class PayloadPlan(NamedTuple):
+    """What the C decoder of ``native`` reads of one stream: its header
+    fields, ``payload`` (uint8: the bytes its cursor reads, a view of the
+    stream where no realignment is needed), ``starts`` (int64 TICX chunk
+    bit offsets, or None for the serial cursor) and ``stride`` (blocks a
+    chunk), and ``luts`` (``(dc_lut, ac_lut)`` of a custom table, None for
+    the standard tables)."""
+
+    height: int
+    width: int
+    quality: int
+    scaled_dct: bool
+    nblocks: int
+    payload: np.ndarray
+    starts: np.ndarray | None
+    stride: int
+    luts: tuple | None
+
+
+def payload_plan(data: bytes) -> PayloadPlan:
+    """A stream's header parsed, and its payload and index chosen as the
+    C decoder reads them: the TICX chunks where the trailer validates and
+    the image has more than one chunk, else the serial cursor; a custom
+    table's LUTs and its payload realigned to a byte."""
+    height, width, quality, flag = parse_header(data)
+    scaled_dct = bool(flag & FLAG_SCALED_DCT) and not (flag & FLAG_CUSTOM_TABLE)
+    nblocks = -(-height // 8) * -(-width // 8)
+    idx = parse_block_index(data, nblocks)
+    luts = None
+    if flag & FLAG_CUSTOM_TABLE:
+        reader = BitReader(data)
+        reader.seek(HEADER_BYTES * 8)
+        tables = read_huffman_table(reader)
+        payload_off = reader.tell()
+        luts = (
+            native.build_decode_lut(
+                {c: (int(s, 2), len(s)) for c, s in tables[DC].items()}
+            ),
+            native.build_decode_lut(
+                {
+                    (r << 4) | sz: (int(s, 2), len(s))
+                    for (r, sz), s in tables[AC].items()
+                }
+            ),
+        )
+        if idx is not None and idx[0][-1] >= idx[2] * 8 - payload_off:
+            # parse_block_index's bound over-counts by the table-segment
+            # bits here; a trailer whose last offset lands past the TRUE
+            # payload end must degrade to the serial cursor, like any
+            # other invalid index
+            idx = None
+        # the custom-table payload may start off a byte boundary: realign
+        # by re-packing the remaining bits; TICX offsets are payload-
+        # relative, so the index works unchanged on the realigned payload
+        end = idx[2] * 8 if idx is not None and nblocks > idx[1] else None
+        payload = np.frombuffer(
+            bits_to_bytes(reader._bits[payload_off:end]), np.uint8)
+    else:
+        end = idx[2] if idx is not None and nblocks > idx[1] else len(data)
+        payload = np.frombuffer(data, np.uint8, end - HEADER_BYTES,
+                                HEADER_BYTES)
+    if idx is None or nblocks <= idx[1]:
+        starts, stride = None, 0
+    else:
+        starts, stride = idx[0], idx[1]
+    return PayloadPlan(height, width, quality, scaled_dct, nblocks,
+                       payload, starts, stride, luts)
+
+
 def decompress_to_arrays(
     data: bytes, use_native: bool = True,
     index_workers: int | None = None,
@@ -284,15 +354,32 @@ def decompress_to_arrays(
     """bytes -> coefficient arrays (entropy decode only).
 
     Runs the C LUT decoder of ``native`` (O(1) per code via a 16-bit peek
-    table; a build that fails raises).  ``use_native=False`` runs the
-    pure-python bit cursor below instead: the behavioural oracle of the
-    format, which the tests hold the C decoder against.
+    table; a build that fails raises) on :func:`payload_plan`'s payload.
+    ``use_native=False`` runs the pure-python bit cursor below instead:
+    the behavioural oracle of the format, which the tests hold the C
+    decoder against.
 
     index_workers: thread count for TICX index-parallel decode (None =
     all cores).  Callers decoding MANY streams concurrently should pass
     1 -- nesting an index pool inside a per-stream pool oversubscribes
     the cores and measures slower than the serial cursor.
     """
+    if use_native:
+        plan = payload_plan(data)
+        if plan.starts is not None:
+            dc, ac = native.entropy_decode_indexed(
+                plan.payload, plan.nblocks, plan.starts, plan.stride,
+                *(plan.luts or (None, None)), max_workers=index_workers,
+            )
+        else:
+            dc, ac = native.entropy_decode(
+                plan.payload, plan.nblocks, *(plan.luts or (None, None))
+            )
+        return CodecArrays(
+            height=plan.height, width=plan.width, quality=plan.quality,
+            dc=dc, ac=ac, scaled_dct=plan.scaled_dct,
+        )
+
     height, width, quality, flag = parse_header(data)
     reader = BitReader(data)
     reader.seek(HEADER_BYTES * 8)
@@ -302,64 +389,6 @@ def decompress_to_arrays(
         tables = _DEFAULT_TABLES
     scaled_dct = bool(flag & FLAG_SCALED_DCT) and not (flag & FLAG_CUSTOM_TABLE)
     nblocks = -(-height // 8) * -(-width // 8)
-
-    if use_native:
-        if flag & FLAG_CUSTOM_TABLE:
-            payload_off = reader.tell()
-            dc_lut = native.build_decode_lut(
-                {c: (int(s, 2), len(s)) for c, s in tables[DC].items()}
-            )
-            ac_lut = native.build_decode_lut(
-                {
-                    (r << 4) | sz: (int(s, 2), len(s))
-                    for (r, sz), s in tables[AC].items()
-                }
-            )
-            # custom-table payload may start off a byte boundary:
-            # realign by re-packing the remaining bits
-            idx = parse_block_index(data, nblocks)
-            if idx is not None and (
-                idx[0][-1] >= idx[2] * 8 - payload_off
-            ):
-                # parse_block_index's bound over-counts by the
-                # table-segment bits here; a trailer whose last
-                # offset lands past the TRUE payload end must
-                # degrade to the serial cursor, like any other
-                # invalid index
-                idx = None
-            if idx is not None and nblocks > idx[1]:
-                # TICX offsets are payload-relative, so the index-
-                # parallel path works unchanged on the realigned
-                # payload with the stream's own LUTs
-                chunk_off, stride, pay_end = idx
-                payload = bits_to_bytes(
-                    reader._bits[payload_off:pay_end * 8]
-                )
-                dc, ac = native.entropy_decode_indexed(
-                    payload, nblocks, chunk_off, stride,
-                    dc_lut, ac_lut, max_workers=index_workers,
-                )
-            else:
-                payload = bits_to_bytes(reader._bits[payload_off:])
-                dc, ac = native.entropy_decode(
-                    payload, nblocks, dc_lut, ac_lut
-                )
-        else:
-            idx = parse_block_index(data, nblocks)
-            if idx is not None and nblocks > idx[1]:
-                chunk_off, stride, pay_end = idx
-                dc, ac = native.entropy_decode_indexed(
-                    data[HEADER_BYTES:pay_end], nblocks,
-                    chunk_off, stride, max_workers=index_workers,
-                )
-            else:
-                dc, ac = native.entropy_decode(
-                    data[HEADER_BYTES:], nblocks
-                )
-        return CodecArrays(
-            height=height, width=width, quality=quality,
-            dc=dc, ac=ac, scaled_dct=scaled_dct,
-        )
 
     inv_dc = _invert(tables[DC])
     inv_ac = _invert(tables[AC])

@@ -24,20 +24,22 @@ by what the device or the build did:
   which degrades block by block as the reference does;
 - **host entropy**: streams the kernel leg cannot take (no trailer, an
   inadmissible table, an image of more than ``MAX_DECODE_BLOCKS`` blocks)
-  are entropy-decoded by the C decoder of ``native`` (through
-  ``container``), one thread a stream, and transformed on the device;
-  the coefficients go up narrow (:func:`compact_coefficients`: int16 DC,
-  int8 AC and a list of outliers, as the JAX package's
-  ``Engine._compact_coeffs``) and are widened there.
+  are entropy-decoded by the C decoder of ``native``, one call a worker
+  (each takes the next stream until none is left), straight into the
+  narrow form the batch goes up in (int16 DC, int8 AC and a list of
+  outliers, as :func:`compact_coefficients` and the JAX package's
+  ``Engine._compact_coeffs`` give it; int16 AC where a stream has too
+  many), and transformed on the device after widening there.
 
 A uniform batch of more than ``MAX_DECODE_BLOCKS`` blocks is decoded on
 the kernel leg in sub-batches cut at image boundaries.
 
 ``decode_stats`` counts the images each leg took in the last call.  Each
 decode stage is a ``codec.decode.*`` span of ``profiling.span``; the
-host-entropy leg's are ``.host_entropy`` (the C decodes), ``.compact``
-and ``.upload`` (the narrow copies and the widening), then the transform
-and the pull as on the kernel leg.
+host-entropy leg's are ``.host_entropy`` (the C decodes into the narrow
+rows), ``.compact`` (the streams' outlier lists joined) and ``.upload``
+(the narrow copies and the widening), then the transform and the pull as
+on the kernel leg.
 
 ``encode_to_words`` gives an image's per-block code words and bit counts
 (the ``encode1`` kernel), from which a TICX trailer of any stride can be
@@ -47,7 +49,6 @@ built.
 from __future__ import annotations
 
 import os
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -132,23 +133,39 @@ def widen_coefficients(dc16: torch.Tensor, acN: torch.Tensor,
 
 
 def host_entropy_workers(n_streams: int) -> int:
-    """The threads :func:`host_entropy_arrays` decodes ``n_streams`` on:
+    """The threads :func:`host_entropy_rows` decodes ``n_streams`` on:
     one a stream, at most one a core."""
     return min(n_streams, os.cpu_count() or 1)
 
 
-def host_entropy_arrays(streams: list[bytes]) -> list[CodecArrays]:
-    """The entropy stage of the host-entropy leg: each stream through the
-    C decoder of ``native`` (``container.decompress_to_arrays``)."""
-    if len(streams) == 1:
-        return [container.decompress_to_arrays(streams[0])]
-    # one C decode a stream, concurrently (the ctypes call releases the
-    # GIL); no TICX threads inside them, which would oversubscribe the
-    # cores
-    with ThreadPoolExecutor(host_entropy_workers(len(streams))) as pool:
-        return list(pool.map(
-            lambda d: container.decompress_to_arrays(d, index_workers=1),
-            streams))
+def host_entropy_rows(streams: list[bytes]) -> native.BatchRows:
+    """The entropy stage of the host-entropy leg: a uniform batch through
+    the C decoder of ``native`` (``native.entropy_decode_batch``: one call
+    a worker, each taking the next stream), straight into the batch's
+    narrow upload form; each stream decoded as
+    ``container.decompress_to_arrays(d, index_workers=1)`` decodes it.
+    Where a stream cannot go narrow (more than an eighth of its AC values
+    outside int8, or a delta beyond int16), the batch is decoded again
+    with int16 AC."""
+    plans = [container.payload_plan(d) for d in streams]
+    workers = host_entropy_workers(len(streams))
+    rows = native.entropy_decode_batch(plans, 1, workers)
+    if (rows.counts < 0).any():
+        rows = native.entropy_decode_batch(plans, 2, workers)
+    return rows
+
+
+def join_outliers(rows: native.BatchRows):
+    """:func:`host_entropy_rows`' rows -> the narrow form of
+    :func:`compact_coefficients`: ``(dc16, acN, exc_idx, exc_val)``, the
+    streams' outlier lists joined in order (flat indices ascending, as
+    ``compact_coefficients`` lists them)."""
+    have = np.flatnonzero(rows.counts)  # none for int16 rows
+    if not have.size:
+        return rows.dc, rows.ac, np.zeros(0, np.int64), np.zeros(0, np.int16)
+    return (rows.dc, rows.ac,
+            np.concatenate([rows.idx[s, :rows.counts[s]] for s in have]),
+            np.concatenate([rows.val[s, :rows.counts[s]] for s in have]))
 
 
 _TABLE_RANGE_MESSAGE = (
@@ -416,28 +433,27 @@ class Engine:
         self.decode_stats["host_decoder"] += len(failed)
         return imgs
 
-    def _upload_arrays(self, arrays: list[CodecArrays]) -> torch.Tensor:
-        """Host-decoded coefficient arrays of equal shape -> (B, nb, 64)
-        int32 on the device: compacted on the host (``codec.decode.compact``,
-        counts ``outliers`` and ``wide``: 1 where the AC goes up as int16),
-        uploaded narrow and widened there (``codec.decode.upload``)."""
+    def _upload(self, compact) -> torch.Tensor:
+        """``compact()``, the narrow form of :func:`compact_coefficients`
+        (``codec.decode.compact``, counts ``outliers`` and ``wide``: 1
+        where the AC goes up as int16) -> (B, nb, 64) int32 on the device:
+        uploaded and widened there (``codec.decode.upload``)."""
         dev = self.device
         with profiling.span("codec.decode.compact") as stage:
-            narrow = compact_coefficients(np.stack([a.dc for a in arrays]),
-                                          np.stack([a.ac for a in arrays]))
+            narrow = compact()
             stage.set(outliers=int(narrow[2].size),
                       wide=int(narrow[1].dtype == np.int16))
         with profiling.span("codec.decode.upload"):
             return widen_coefficients(
                 *(torch.from_numpy(x).to(dev) for x in narrow), dev)
 
-    def _arrays_pixels(self, arrays: list[CodecArrays],
+    def _arrays_pixels(self, key: tuple[int, int, int, bool],
                        zz: torch.Tensor) -> np.ndarray:
-        """``arrays``' coefficients ``zz``, on the device -> (B, H, W)
-        uint8: one batched transform there."""
-        a0 = arrays[0]
-        return self._pixels(zz, a0.height, a0.width, int(a0.quality),
-                            bool(a0.scaled_dct))
+        """Coefficients ``zz`` on the device of images of one
+        ``_stream_key`` ``key`` -> (B, H, W) uint8: one batched transform
+        there."""
+        h, w, quality, scaled = key
+        return self._pixels(zz, h, w, quality, scaled)
 
     def _decompress_batch(self, streams: list[bytes]):
         if not streams:
@@ -461,12 +477,13 @@ class Engine:
             if out is not None:
                 return out
         with profiling.span("codec.decode.host_entropy") as stage:
-            arrays = host_entropy_arrays(streams)
+            rows = host_entropy_rows(streams)
             stage.set(streams=len(streams),
-                      threads=host_entropy_workers(len(streams)))
-        zz = self._upload_arrays(arrays)
+                      threads=host_entropy_workers(len(streams)),
+                      narrow=len(streams) if rows.ac.dtype == np.int8 else 0)
+        zz = self._upload(lambda: join_outliers(rows))
         self.decode_stats["host_entropy"] += len(streams)
-        return self._arrays_pixels(arrays, zz)
+        return self._arrays_pixels(keys[0], zz)
 
     def decompress_batch(self, streams: list[bytes]):
         """Compressed streams -> decoded uint8 images: a stacked
@@ -482,4 +499,8 @@ class Engine:
     def decode_arrays(self, arrays: CodecArrays) -> np.ndarray:
         """Coefficient arrays (already entropy-decoded) -> image, with the
         transform on the device."""
-        return self._arrays_pixels([arrays], self._upload_arrays([arrays]))[0]
+        zz = self._upload(lambda: compact_coefficients(
+            np.stack([arrays.dc]), np.stack([arrays.ac])))
+        return self._arrays_pixels((arrays.height, arrays.width,
+                                    int(arrays.quality),
+                                    bool(arrays.scaled_dct)), zz)[0]

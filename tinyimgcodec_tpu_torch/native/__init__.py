@@ -1,11 +1,14 @@
 """The host runtime in C: builds ``codec_native.c`` + ``embedded.c`` with
 the system C compiler and loads them through ctypes.
 
-The port's copy of the JAX package's ``native`` module (the C sources are
-copies of that package's, unchanged): the LUT entropy decoder behind
-``container.decompress_to_arrays`` (serial, and chunk-parallel on TICX
-streams), the ragged-row stitcher, the standard-table entropy encoder and
-the fixed-point embedded encoder.
+The port's copy of the JAX package's ``native`` module: the LUT entropy
+decoder behind ``container.decompress_to_arrays`` (serial, and
+chunk-parallel on TICX streams), the ragged-row stitcher, the
+standard-table entropy encoder and the fixed-point embedded encoder.  The
+port's decoder adds one entry point, ``tic_entropy_decode_batch``
+(:func:`entropy_decode_batch`): a batch's streams decoded by the same
+cursor, on several threads at once, straight into the narrow rows the
+host-entropy decode leg uploads.
 
 The library is compiled on first use into ``build/`` at the root of the
 checkout (``ops/_build.BUILD_DIR``, shared with the CUDA kernels), into a
@@ -23,6 +26,7 @@ import hashlib
 import os
 import subprocess
 import threading
+from typing import NamedTuple
 
 import numpy as np
 
@@ -114,6 +118,12 @@ def lib() -> ctypes.CDLL:
     l.tic_entropy_decode_chunks.argtypes = [
         u8, ctypes.c_long, i64, ctypes.c_long, ctypes.c_long,
         ctypes.c_long, u8, u8, u8, u8, i32, i32,
+    ]
+    l.tic_entropy_decode_batch.restype = ctypes.c_long
+    l.tic_entropy_decode_batch.argtypes = [
+        i64, i64, ctypes.c_long, ctypes.c_long, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int16), ctypes.c_void_p, ctypes.c_long, i64,
+        ctypes.POINTER(ctypes.c_int16), i64,
     ]
     l.tic_entropy_encode.restype = ctypes.c_long
     l.tic_entropy_encode.argtypes = [i32, i32, ctypes.c_long, u32, u8,
@@ -250,6 +260,78 @@ def entropy_decode_indexed(
     else:
         run_span(0, nchunks)
     return dc, ac
+
+
+class BatchRows(NamedTuple):
+    """A batch's coefficients as :func:`entropy_decode_batch` writes them:
+    ``dc`` (B, nb) int16 DC differences, ``ac`` (B, nb, 63) zig-zag AC,
+    int8 (wrapped) or int16; for int8, ``counts`` (B,) the AC values
+    outside int8 a stream (-1 where the stream cannot go narrow: its list
+    overflowed, or a delta lies beyond int16), and the lists, row s of
+    ``idx`` (B, cap) int64 (flat indices into ``ac``) and ``val`` (B, cap)
+    int16 (the value less its int8 wrap), valid to ``counts[s]``; for
+    int16, ``counts`` all zero and no lists."""
+
+    dc: np.ndarray
+    ac: np.ndarray
+    counts: np.ndarray
+    idx: np.ndarray
+    val: np.ndarray
+
+
+def entropy_decode_batch(plans, width: int = 1,
+                         workers: int = 1) -> BatchRows:
+    """Streams of equal block counts -> their coefficients in the batch's
+    upload form: one C call (``tic_entropy_decode_batch``) a worker, the
+    calling thread and ``workers - 1`` of the decode pool, each taking the
+    next stream from a shared cursor until none is left.
+
+    ``plans``: one a stream, each with ``payload`` (uint8 array: the bytes
+    the cursor reads), ``nblocks``, ``starts`` (int64 TICX chunk bit
+    offsets, or None for the serial cursor), ``stride`` and ``luts``
+    (``(dc_lut, ac_lut)``, None for the standard tables): what
+    ``container.payload_plan`` gives.  Each stream is decoded as
+    :func:`entropy_decode` / :func:`entropy_decode_indexed` decode it.
+    ``width`` 1 writes int8 AC and lists the values outside int8, at most
+    ``nb * 63 // 8`` a stream; 2 writes int16 AC and no lists."""
+    if width not in (1, 2):
+        raise ValueError(f"width {width}: 1 (int8 AC) or 2 (int16 AC)")
+    l = lib()
+    n = len(plans)
+    nb = plans[0].nblocks if n else 0
+    if any(p.nblocks != nb for p in plans):
+        raise ValueError("streams of different block counts")
+    table = np.zeros((n, 9), np.int64)
+    for s, p in enumerate(plans):
+        dc_lut, ac_lut = p.luts or _default_luts()
+        table[s] = (p.payload.ctypes.data, p.payload.size * 8,
+                    0 if p.starts is None else p.starts.ctypes.data,
+                    0 if p.starts is None else p.starts.size, p.stride,
+                    dc_lut[0].ctypes.data, dc_lut[1].ctypes.data,
+                    ac_lut[0].ctypes.data, ac_lut[1].ctypes.data)
+    cap = nb * 63 // 8 if width == 1 else 0
+    rows = BatchRows(np.empty((n, nb), np.int16),
+                     np.empty((n, nb, 63), np.int8 if width == 1 else
+                              np.int16),
+                     np.zeros(n, np.int64), np.empty((n, cap), np.int64),
+                     np.empty((n, cap), np.int16))
+
+    cursor = np.zeros(1, np.int64)
+
+    def run() -> None:
+        l.tic_entropy_decode_batch(
+            _ptr(table, ctypes.c_int64), _ptr(cursor, ctypes.c_int64), n,
+            nb, width, _ptr(rows.dc, ctypes.c_int16), rows.ac.ctypes.data,
+            cap, _ptr(rows.idx, ctypes.c_int64),
+            _ptr(rows.val, ctypes.c_int16), _ptr(rows.counts, ctypes.c_int64))
+
+    helpers = [_decode_pool().submit(run) for _ in range(min(workers, n) - 1)]
+    run()
+    # the cursor is spent: a helper not started yet has nothing to do
+    for f in helpers:
+        if not f.cancel():
+            f.result()
+    return rows
 
 
 @functools.cache

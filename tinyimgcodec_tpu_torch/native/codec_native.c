@@ -119,72 +119,175 @@ static inline int32_t br_read_signed(BitReader *br, int size) {
     return -(int32_t)((~raw) & ((1u << size) - 1));
 }
 
-/* Decode nblocks blocks starting at bit `start`.  LUTs: 65536 entries
- * indexed by the next 16 bits; *_len gives the code length (0 =
- * invalid), *_sym the decoded symbol (DC: category; AC: run<<4|size).
- * Returns the number of fully decoded blocks (partial/corrupt blocks
- * are left zero, matching the reference's per-block try/except
- * semantics, codec.py:178-186). */
+/* The 16-bit peek LUTs of a stream: 65536 entries indexed by the next 16
+ * bits; *_len gives the code length (0 = invalid), *_sym the decoded
+ * symbol (DC: category; AC: run<<4|size). */
+typedef struct {
+    const uint8_t *dc_len, *dc_sym, *ac_len, *ac_sym;
+} Luts;
+
+/* Decode the block at the cursor into *dv and acbuf[0..62].  Returns 1,
+ * with *big set where an AC value lies outside int8, or 0 where the
+ * block is corrupt (the cursor then stays where the fault was found). */
+static inline int decode_block(BitReader *br, const Luts *t, int32_t *dv,
+                               int32_t *acbuf, int *big) {
+    long nbits = br->nbits;
+    /* DC */
+    uint32_t peek = br_peek16(br);
+    int len = t->dc_len[peek];
+    if (len == 0 || br->pos + len > nbits) return 0;
+    br->pos += len;
+    int cat = t->dc_sym[peek];
+    *dv = br_read_signed(br, cat);
+    if (br->pos > nbits) return 0;
+    /* AC: fill until EOB or 63 coefficients */
+    int k = 0;
+    uint32_t out8 = 0;
+    memset(acbuf, 0, 64 * sizeof(int32_t));
+    for (;;) {
+        peek = br_peek16(br);
+        len = t->ac_len[peek];
+        if (len == 0 || br->pos + len > nbits) return 0;
+        br->pos += len;
+        int sym = t->ac_sym[peek];
+        int run = sym >> 4, size = sym & 0xF;
+        if (sym == 0x00) break; /* EOB */
+        if (sym == 0xF0) {      /* ZRL: 16 zeros */
+            k += 16;
+            if (k > 63) return 0;
+            continue;
+        }
+        k += run;
+        int32_t v = br_read_signed(br, size);
+        if (br->pos > nbits || k >= 63) return 0;
+        acbuf[k++] = v;
+        out8 |= (uint32_t)(v + 128) > 255u;
+    }
+    *big = out8 != 0;
+    return 1;
+}
+
+/* Where decoded blocks go.  OUT_I32: int32 DC and AC rows (the arrays of
+ * tic_entropy_decode*).  OUT_I8: the narrow upload form, int16 DC and
+ * int8 AC (wrapped, as numpy's astype(int8) wraps), each AC value outside
+ * int8 listed apart: its flat index (base + block * 63 + k) and its
+ * delta from the wrapped value, while the list has room; n_exc counts
+ * them all, and wide is set for a delta beyond int16.  OUT_I16: int16 DC
+ * and AC. */
+enum { OUT_I32, OUT_I8, OUT_I16 };
+
+typedef struct {
+    int kind;
+    int32_t *dc32, *ac32;
+    int16_t *dc16, *ac16;
+    int8_t *ac8;
+    int64_t *exc_idx;
+    int16_t *exc_val;
+    int64_t exc_base, exc_cap, n_exc;
+    int wide;
+} Out;
+
+static inline void out_block(Out *o, long i, int32_t dv,
+                             const int32_t *acbuf, int big) {
+    if (o->kind == OUT_I32) {
+        o->dc32[i] = dv;
+        memcpy(o->ac32 + i * 63, acbuf, 63 * sizeof(int32_t));
+        return;
+    }
+    o->dc16[i] = (int16_t)dv;
+    if (o->kind == OUT_I16) {
+        int16_t *row = o->ac16 + i * 63;
+        for (int k = 0; k < 63; k++) row[k] = (int16_t)acbuf[k];
+        return;
+    }
+    int8_t *row = o->ac8 + i * 63;
+    for (int k = 0; k < 63; k++) row[k] = (int8_t)acbuf[k];
+    if (!big) return;
+    for (int k = 0; k < 63; k++) {
+        int32_t d = acbuf[k] - (int8_t)acbuf[k];
+        if (d == 0) continue;
+        if (o->n_exc < o->exc_cap) {
+            o->exc_idx[o->n_exc] = o->exc_base + i * 63 + k;
+            o->exc_val[o->n_exc] = (int16_t)d;
+        }
+        o->n_exc++;
+        if (d > 32767 || d < -32767) o->wide = 1;
+    }
+}
+
+/* Blocks i .. i+n-1 all zero. */
+static inline void out_zero(Out *o, long i, long n) {
+    if (n <= 0) return;
+    if (o->kind == OUT_I32) {
+        memset(o->dc32 + i, 0, (size_t)n * sizeof(int32_t));
+        memset(o->ac32 + i * 63, 0, (size_t)n * 63 * sizeof(int32_t));
+        return;
+    }
+    memset(o->dc16 + i, 0, (size_t)n * sizeof(int16_t));
+    if (o->kind == OUT_I16)
+        memset(o->ac16 + i * 63, 0, (size_t)n * 63 * sizeof(int16_t));
+    else
+        memset(o->ac8 + i * 63, 0, (size_t)n * 63);
+}
+
+/* Decode nblocks blocks starting at bit `start` into blocks b0 ..
+ * b0+nblocks-1 of `o`.  Returns the number of fully decoded blocks
+ * (partial/corrupt blocks are left zero, matching the reference's
+ * per-block try/except semantics, codec.py:178-186). */
 static long entropy_decode_from(const uint8_t *data, long nbits, long start,
-                                long nblocks,
-                                const uint8_t *dc_lut_len,
-                                const uint8_t *dc_lut_sym,
-                                const uint8_t *ac_lut_len,
-                                const uint8_t *ac_lut_sym, int32_t *dc,
-                                int32_t *ac) {
+                                long nblocks, const Luts *t, Out *o,
+                                long b0) {
     BitReader br = {data, nbits, (nbits + 7) / 8, start};
     long ok = 0;
     for (long i = 0; i < nblocks; i++) {
-        long start = br.pos;
-        /* DC */
-        uint32_t peek = br_peek16(&br);
-        int len = dc_lut_len[peek];
-        if (len == 0 || br.pos + len > nbits) goto corrupt;
-        br.pos += len;
-        int cat = dc_lut_sym[peek];
-        int32_t dv = br_read_signed(&br, cat);
-        if (br.pos > nbits) goto corrupt;
-        /* AC: fill until EOB or 63 coefficients */
-        int k = 0;
-        int32_t acbuf[64];
-        memset(acbuf, 0, sizeof(acbuf));
-        for (;;) {
-            peek = br_peek16(&br);
-            len = ac_lut_len[peek];
-            if (len == 0 || br.pos + len > nbits) goto corrupt;
-            br.pos += len;
-            int sym = ac_lut_sym[peek];
-            int run = sym >> 4, size = sym & 0xF;
-            if (sym == 0x00) break; /* EOB */
-            if (sym == 0xF0) {      /* ZRL: 16 zeros */
-                k += 16;
-                if (k > 63) goto corrupt;
-                continue;
-            }
-            k += run;
-            int32_t v = br_read_signed(&br, size);
-            if (br.pos > nbits || k >= 63) goto corrupt;
-            acbuf[k++] = v;
+        long at = br.pos;
+        int32_t dv, acbuf[64];
+        int big;
+        if (decode_block(&br, t, &dv, acbuf, &big)) {
+            out_block(o, b0 + i, dv, acbuf, big);
+            ok++;
+            continue;
         }
-        dc[i] = dv;
-        memcpy(ac + i * 63, acbuf, 63 * sizeof(int32_t));
-        ok++;
-        continue;
-    corrupt:
         /* leave this block zero; try the next one from wherever the
          * cursor stopped (graceful degradation, SURVEY quirk 2.5-10) */
-        dc[i] = 0;
-        memset(ac + i * 63, 0, 63 * sizeof(int32_t));
-        if (br.pos <= start) br.pos = start + 1;
+        out_zero(o, b0 + i, 1);
+        if (br.pos <= at) br.pos = at + 1;
         if (br.pos > nbits) {
-            for (long j = i + 1; j < nblocks; j++) {
-                dc[j] = 0;
-                memset(ac + j * 63, 0, 63 * sizeof(int32_t));
-            }
+            out_zero(o, b0 + i + 1, nblocks - i - 1);
             break;
         }
     }
     return ok;
+}
+
+/* Chunks 0 .. nchunks-1 of an indexed stream: starts[c] is the payload
+ * bit offset of block c*stride; a chunk whose start lies outside the
+ * payload is left zero. */
+static long decode_chunks(const uint8_t *data, long nbits,
+                          const int64_t *starts, long nchunks, long stride,
+                          long nblocks, const Luts *t, Out *o) {
+    long ok = 0;
+    for (long c = 0; c < nchunks; c++) {
+        long b0 = c * stride;
+        long nb = nblocks - b0;
+        if (nb <= 0) break;
+        if (nb > stride) nb = stride;
+        long s = starts[c];
+        if (s < 0 || s > nbits) {
+            out_zero(o, b0, nb);
+            continue;
+        }
+        ok += entropy_decode_from(data, nbits, s, nb, t, o, b0);
+    }
+    return ok;
+}
+
+static Out out_i32(int32_t *dc, int32_t *ac) {
+    Out o = {0};
+    o.kind = OUT_I32;
+    o.dc32 = dc;
+    o.ac32 = ac;
+    return o;
 }
 
 EXPORT long tic_entropy_decode(const uint8_t *data, long nbits, long nblocks,
@@ -193,8 +296,9 @@ EXPORT long tic_entropy_decode(const uint8_t *data, long nbits, long nblocks,
                                const uint8_t *ac_lut_len,
                                const uint8_t *ac_lut_sym, int32_t *dc,
                                int32_t *ac) {
-    return entropy_decode_from(data, nbits, 0, nblocks, dc_lut_len,
-                               dc_lut_sym, ac_lut_len, ac_lut_sym, dc, ac);
+    Luts t = {dc_lut_len, dc_lut_sym, ac_lut_len, ac_lut_sym};
+    Out o = out_i32(dc, ac);
+    return entropy_decode_from(data, nbits, 0, nblocks, &t, &o, 0);
 }
 
 /* Chunked entry point for index-parallel decode: start at an arbitrary
@@ -212,8 +316,9 @@ EXPORT long tic_entropy_decode_at(const uint8_t *data, long nbits,
         memset(ac, 0, (size_t)nblocks * 63 * sizeof(int32_t));
         return 0;
     }
-    return entropy_decode_from(data, nbits, start_bit, nblocks, dc_lut_len,
-                               dc_lut_sym, ac_lut_len, ac_lut_sym, dc, ac);
+    Luts t = {dc_lut_len, dc_lut_sym, ac_lut_len, ac_lut_sym};
+    Out o = out_i32(dc, ac);
+    return entropy_decode_from(data, nbits, start_bit, nblocks, &t, &o, 0);
 }
 
 /* Decode a run of indexed chunks in one call (ctypes/thread dispatch
@@ -225,17 +330,74 @@ EXPORT long tic_entropy_decode_chunks(
     long stride, long nblocks, const uint8_t *dc_lut_len,
     const uint8_t *dc_lut_sym, const uint8_t *ac_lut_len,
     const uint8_t *ac_lut_sym, int32_t *dc, int32_t *ac) {
+    Luts t = {dc_lut_len, dc_lut_sym, ac_lut_len, ac_lut_sym};
+    Out o = out_i32(dc, ac);
+    return decode_chunks(data, nbits, starts, nchunks, stride, nblocks, &t,
+                         &o);
+}
+
+/* The columns of a row of tic_entropy_decode_batch's plan: one stream's
+ * payload (address and bit length), its TICX chunk starts (address, 0
+ * for the serial cursor; count; blocks a chunk) and its four LUTs. */
+enum {
+    P_DATA, P_NBITS, P_STARTS, P_NCHUNKS, P_STRIDE,
+    P_DC_LEN, P_DC_SYM, P_AC_LEN, P_AC_SYM, P_COLS
+};
+
+/* A batch of n streams of nblocks blocks each, decoded straight into
+ * their rows of the batch's upload form: dc (n, nblocks) int16; ac
+ * (n, nblocks, 63) int8 where width is 1, int16 where it is 2.  Each
+ * stream is decoded as tic_entropy_decode (no starts) or
+ * tic_entropy_decode_chunks (starts) decodes it, every block written,
+ * corrupt ones zero.  Width 1 lists each stream's AC values outside int8
+ * in its row of exc_idx / exc_val (exc_cap entries a row; the flat index
+ * into ac, and the value less its int8 wrap) and writes n_exc[s], the
+ * count, or -1 where the row overflowed or a delta lies beyond int16:
+ * the batch then goes up at width 2.  Several threads may call this at
+ * once on one batch: each takes the next stream from *cursor until none
+ * is left, so a thread that is slowed (a shared host) holds up only the
+ * stream it is on.  Returns the fully decoded blocks of this call. */
+EXPORT long tic_entropy_decode_batch(const int64_t *plan, int64_t *cursor,
+                                     long n, long nblocks, int width,
+                                     int16_t *dc, void *ac, long exc_cap,
+                                     int64_t *exc_idx, int16_t *exc_val,
+                                     int64_t *n_exc) {
     long ok = 0;
-    for (long c = 0; c < nchunks; c++) {
-        long b0 = c * stride;
-        long nb = nblocks - b0;
-        if (nb <= 0) break;
-        if (nb > stride) nb = stride;
-        long s = starts[c];
-        if (s < 0 || s > nbits) continue; /* outputs stay zero */
-        ok += entropy_decode_from(data, nbits, s, nb, dc_lut_len,
-                                  dc_lut_sym, ac_lut_len, ac_lut_sym,
-                                  dc + b0, ac + b0 * 63);
+    for (;;) {
+        long s = (long)__atomic_fetch_add(cursor, 1, __ATOMIC_RELAXED);
+        if (s >= n) break;
+        const int64_t *p = plan + s * P_COLS;
+        const uint8_t *data = (const uint8_t *)(intptr_t)p[P_DATA];
+        const int64_t *starts = (const int64_t *)(intptr_t)p[P_STARTS];
+        long nbits = (long)p[P_NBITS];
+        Luts t = {(const uint8_t *)(intptr_t)p[P_DC_LEN],
+                  (const uint8_t *)(intptr_t)p[P_DC_SYM],
+                  (const uint8_t *)(intptr_t)p[P_AC_LEN],
+                  (const uint8_t *)(intptr_t)p[P_AC_SYM]};
+        Out o = {0};
+        o.dc16 = dc + s * nblocks;
+        if (width == 1) {
+            o.kind = OUT_I8;
+            o.ac8 = (int8_t *)ac + s * nblocks * 63;
+            o.exc_idx = exc_idx + s * exc_cap;
+            o.exc_val = exc_val + s * exc_cap;
+            o.exc_cap = exc_cap;
+            o.exc_base = (int64_t)s * nblocks * 63;
+        } else {
+            o.kind = OUT_I16;
+            o.ac16 = (int16_t *)ac + s * nblocks * 63;
+        }
+        if (starts) {
+            long nchunks = (long)p[P_NCHUNKS], stride = (long)p[P_STRIDE];
+            long covered = nchunks * stride;
+            ok += decode_chunks(data, nbits, starts, nchunks, stride,
+                                nblocks, &t, &o);
+            if (covered < nblocks) out_zero(&o, covered, nblocks - covered);
+        } else {
+            ok += entropy_decode_from(data, nbits, 0, nblocks, &t, &o, 0);
+        }
+        if (width == 1)
+            n_exc[s] = (o.n_exc > o.exc_cap || o.wide) ? -1 : o.n_exc;
     }
     return ok;
 }

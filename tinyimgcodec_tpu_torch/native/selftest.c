@@ -2,7 +2,8 @@
  * embedded.c).  Built with -fsanitize=address,undefined by
  * tests/test_native.py and run as a subprocess: exercises the entropy
  * encoder/decoder roundtrip, the ragged stitcher against a naive bit
- * appender, corrupt/truncated-payload decode (must stay in bounds), and
+ * appender, corrupt/truncated-payload decode (must stay in bounds), the
+ * batch entry point's int8 and int16 rows against the int32 decode, and
  * the embedded encoder's capacity handling.  Exit 0 = clean; any memory
  * or UB error aborts via the sanitizer runtime.
  *
@@ -24,6 +25,10 @@ long tic_entropy_decode(const uint8_t *data, long nbits, long nblocks,
                         const uint8_t *dc_lut_len, const uint8_t *dc_lut_sym,
                         const uint8_t *ac_lut_len, const uint8_t *ac_lut_sym,
                         int32_t *dc, int32_t *ac);
+long tic_entropy_decode_batch(const int64_t *plan, int64_t *cursor, long n,
+                              long nblocks, int width, int16_t *dc,
+                              void *ac, long exc_cap, int64_t *exc_idx,
+                              int16_t *exc_val, int64_t *n_exc);
 long tic_entropy_encode(const int32_t *dc, const int32_t *ac, long nblocks,
                         const uint32_t *dc_code, const uint8_t *dc_len,
                         const uint32_t *ac_code, const uint8_t *ac_len,
@@ -164,6 +169,73 @@ int main(int argc, char **argv) {
                                  ac_lut_len, ac_lut_sym, dc2, ac2);
         CHECK(got >= 0 && got < NB, "truncated decode bounds");
         free(junk);
+    }
+
+    /* 6) the batch entry point: the valid payload, a truncated one and
+     * junk through the serial cursor, and the valid one as two chunks,
+     * the second's start past the payload; int8 rows with lists of an
+     * eighth of a stream's AC (the valid payload's overflows), then int16
+     * rows.  Every row,
+     * widened, must equal tic_entropy_decode's (the chunked stream: its
+     * first half, then zeros). */
+    enum { BS = 4, CAP = NB * 63 / 8 };
+    static uint8_t junk6[300];
+    for (int i = 0; i < 300; i++) junk6[i] = (uint8_t)lcg();
+    int64_t starts6[2] = {0, nbits + 9};
+    const uint8_t *bdata[BS] = {payload, payload, junk6, payload};
+    long bbits[BS] = {nbits, nbits / 3, 300 * 8, nbits};
+    int64_t plan[BS * 9];
+    for (int s = 0; s < BS; s++) {
+        int64_t *p = plan + s * 9;
+        p[0] = (int64_t)(intptr_t)bdata[s];
+        p[1] = bbits[s];
+        p[2] = s == 3 ? (int64_t)(intptr_t)starts6 : 0;
+        p[3] = 2;
+        p[4] = (NB + 1) / 2;
+        p[5] = (int64_t)(intptr_t)dc_lut_len;
+        p[6] = (int64_t)(intptr_t)dc_lut_sym;
+        p[7] = (int64_t)(intptr_t)ac_lut_len;
+        p[8] = (int64_t)(intptr_t)ac_lut_sym;
+    }
+    static int16_t bdc[BS * NB], bac16[BS * NB * 63];
+    static int8_t bac8[BS * NB * 63];
+    static int64_t bidx[BS * CAP], bn[BS];
+    static int16_t bval[BS * CAP];
+    /* two calls share a cursor, as two threads would */
+    int64_t cursor = 0;
+    tic_entropy_decode_batch(plan, &cursor, BS, NB, 1, bdc, bac8, CAP, bidx,
+                             bval, bn);
+    CHECK(cursor > BS, "batch cursor spent");
+    CHECK(tic_entropy_decode_batch(plan, &cursor, BS, NB, 1, bdc, bac8, CAP,
+                                   bidx, bval, bn) == 0,
+          "a spent cursor decodes nothing");
+    CHECK(bn[0] == -1, "batch list overflow flagged");
+    cursor = 0;
+    tic_entropy_decode_batch(plan, &cursor, BS, NB, 2, bdc, bac16, 0, NULL,
+                             NULL, NULL);
+    for (int s = 0; s < BS; s++) {
+        memset(dc2, 0, sizeof dc2);
+        memset(ac2, 0, sizeof ac2);
+        tic_entropy_decode(bdata[s], bbits[s], s == 3 ? (NB + 1) / 2 : NB,
+                           dc_lut_len, dc_lut_sym, ac_lut_len, ac_lut_sym,
+                           dc2, ac2);
+        for (long i = 0; i < NB; i++) {
+            CHECK(bdc[s * NB + i] == dc2[i], "batch dc");
+            for (int k = 0; k < 63; k++) {
+                long j = (s * NB + i) * 63 + k;
+                CHECK(bac16[j] == ac2[i * 63 + k], "batch int16 ac");
+                CHECK(bac8[j] == (int8_t)ac2[i * 63 + k], "batch int8 ac");
+            }
+        }
+        CHECK(s == 0 || s == 3 || bn[s] >= 0, "batch list in range");
+        if (s == 1) CHECK(bn[s] > 0, "batch outliers listed");
+        if (bn[s] >= 0)
+            for (long e = 0; e < bn[s]; e++) {
+                long j = bidx[s * CAP + e] - (long)s * NB * 63;
+                CHECK(j >= 0 && j < NB * 63, "batch outlier index");
+                CHECK(bval[s * CAP + e] == ac2[j] - (int8_t)ac2[j],
+                      "batch outlier delta");
+            }
     }
     free(payload);
 
