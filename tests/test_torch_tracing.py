@@ -13,7 +13,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from tinyimgcodec_tpu_torch import api, profiling
+from tinyimgcodec_tpu_torch import api, golden, huffman, profiling
 from tinyimgcodec_tpu_torch import container as tcontainer
 from tinyimgcodec_tpu_torch.engine import Engine, compact_coefficients
 from tinyimgcodec_tpu_torch.golden import CodecArrays
@@ -306,3 +306,63 @@ def test_the_chrome_trace_shows_the_spans(tmp_path):
     with open(tmp_path / "trace.json") as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert {"codec.compress_batch", "codec.encode.transform"} <= names
+
+
+AUTO_STAGES = ["upload", "transform", "pull", "table", "entropy", "place",
+               "pull", "assemble"]
+
+
+def _stage_order(recs, call):
+    """The stage names of ``call`` by start, a run of one name once (the
+    padding and each block range's copy are both ``upload``)."""
+    names = [r.name for r in sorted((r for r in recs if r is not call),
+                                    key=lambda r: r.start_ns)]
+    return [n for i, n in enumerate(names) if i == 0 or n != names[i - 1]]
+
+
+def test_an_auto_table_encode_records_its_stages_and_table_counts():
+    img = synthetic_image(40, 56, seed=29)
+    out, recs, _ = _traced(lambda: api.compress(
+        img, 50, auto_generate_huffman_table=True, device="cpu"))
+    assert out == tcontainer.compress(img, 50, True, block_index=True)
+    call = _one(recs, "codec.compress")
+    assert _stage_order(recs, call) == [f"codec.encode.{s}"
+                                        for s in AUTO_STAGES]
+    assert all((r.call_id, r.shard) == (call.call_id, 0) for r in recs)
+    # the block range's stages sit side by side, as in a batch encode
+    assert all(r.parent_id == call.span_id for r in recs if r is not call)
+    spec = huffman.build_huffman_spec(golden.encode_arrays(img, 50))
+    assert _one(recs, "codec.encode.table").counts == {
+        "blocks": 5 * 7,
+        "dc_symbols": int(np.count_nonzero(spec.dc_len)),
+        "ac_symbols": int(np.count_nonzero(spec.ac_len)),
+        "longest": int(max(spec.dc_len.max(), spec.ac_len.max())),
+        "host_route": 0}
+    assert not any(r.name == "codec.encode.fallback" for r in recs)
+
+
+def test_an_auto_table_encode_on_the_host_route_records_the_fallback():
+    from test_torch_auto_table import CONTRAST
+
+    out, recs, _ = _traced(lambda: api.compress(
+        CONTRAST, 97, auto_generate_huffman_table=True, device="cpu"))
+    assert out == tcontainer.compress(CONTRAST, 97, True, block_index=True)
+    call = _one(recs, "codec.compress")
+    assert _stage_order(recs, call) == [
+        f"codec.encode.{s}" for s in ("upload", "transform", "pull",
+                                      "table", "fallback")]
+    table = _one(recs, "codec.encode.table").counts
+    assert table["host_route"] == 1 and table["blocks"] == 64
+    assert _one(recs, "codec.encode.fallback").counts == {"images": 1}
+
+
+@pytest.mark.parametrize("quality", [10, 90])
+def test_auto_table_bytes_are_the_same_with_the_spans_on_and_off(quality):
+    img = synthetic_image(37, 45, seed=quality)
+    off = api.compress(img, quality, auto_generate_huffman_table=True,
+                       device="cpu")
+    on, recs, _ = _traced(lambda: api.compress(
+        img, quality, auto_generate_huffman_table=True, device="cpu"))
+    assert on == off
+    assert {r.name for r in recs} >= {"codec.encode.table",
+                                      "codec.encode.assemble"}

@@ -6,7 +6,8 @@ entry point are the same program.  ``compress(..., auto_table=True)`` codes
 the image with Huffman tables built for it at run time: coefficients on
 the device, histograms and tables on the host, then the same ``encode2`` +
 ``place`` kernels with the new tables, in the pipeline's block ranges (or
-the host container when the tables leave the kernels' range).
+the host container when the tables leave the kernels' range), each step a
+``codec.encode.*`` stage span (``table`` and ``fallback`` its own).
 
 Decode has three legs, chosen per stream by what the *stream* is, never
 by what the device or the build did:
@@ -259,44 +260,70 @@ class Engine:
         prefix and the code apart), else, range by range, ``encode2`` from
         the coefficients with the new tables (the DC predictor carried
         from range to range) and ``place``, the ranges stitched at bit
-        offsets after the table segment."""
+        offsets after the table segment.
+
+        Stages (``codec.encode.*``): ``upload`` (the padding, then each
+        range's copy and ``blockify``), ``transform``, ``pull`` (the
+        coefficients to the host), ``table`` (DPCM, histograms, the
+        canonical tables, the route; counts ``blocks``, ``dc_symbols`` and
+        ``ac_symbols`` (the symbols given a code), ``longest`` (the longest
+        code) and ``host_route``), then on the kernel route ``entropy``,
+        ``place``, ``pull`` (the blocks' offsets) and ``assemble`` (the
+        join, the header, the table segment, the trailer); on the host
+        route ``fallback`` (count ``images``)."""
         h, w = image.shape
-        padded = np.ascontiguousarray(
-            transform.pad_to_blocks(image.astype(np.uint8, copy=False)))
+        dev = self.device
+        with profiling.span("codec.encode.upload"):
+            padded = np.ascontiguousarray(
+                transform.pad_to_blocks(image.astype(np.uint8, copy=False)))
+            tables = CodecTables.build(quality, dev)
         h8, w8 = padded.shape
         nb = (h8 // 8) * (w8 // 8)
-        dev = self.device
         # in sub-ranges of at most one kernel call's pixels, as the
         # pipeline cuts an image of more than ``MAX_PIXELS``
-        zz_list = range_coefficients(
-            padded, 0, nb, CodecTables.build(quality, dev), self.precision,
-            dev)
-        zz_np = np.concatenate([zz.cpu().numpy() for zz in zz_list], axis=1)
-        dc = np.diff(zz_np[0], prepend=np.int32(0)).astype(np.int32)
-        ac = np.ascontiguousarray(zz_np[1:].T)
-        spec = build_huffman_spec_from_counts(*symbol_counts(dc, ac))
+        zz_list = range_coefficients(padded, 0, nb, tables, self.precision,
+                                     dev)
+        with profiling.span("codec.encode.pull"):
+            zz_np = np.concatenate([zz.cpu().numpy() for zz in zz_list],
+                                   axis=1)
+        with profiling.span("codec.encode.table") as stage:
+            dc = np.diff(zz_np[0], prepend=np.int32(0)).astype(np.int32)
+            ac = np.ascontiguousarray(zz_np[1:].T)
+            spec = build_huffman_spec_from_counts(*symbol_counts(dc, ac))
+            host_route = bool(
+                spec.extended or int(block_bit_counts(dc, ac, spec).max())
+                > KERNEL_BLOCK_BITS)
+            if not host_route:
+                tables = CodecTables.from_spec(spec, quality, dev)
+            stage.set(blocks=nb, dc_symbols=int(np.count_nonzero(
+                spec.dc_len)), ac_symbols=int(np.count_nonzero(spec.ac_len)),
+                longest=int(max(spec.dc_len.max(), spec.ac_len.max())),
+                host_route=int(host_route))
         arrays = CodecArrays(height=h, width=w, quality=quality, dc=dc,
                              ac=ac)
-        if (spec.extended or int(block_bit_counts(dc, ac, spec).max())
-                > KERNEL_BLOCK_BITS):
-            return container.compress_arrays(
-                arrays, True, block_index=block_index, spec=spec,
-                index_stride=index_stride,
-            )
+        if host_route:
+            with profiling.span("codec.encode.fallback", images=1):
+                return container.compress_arrays(
+                    arrays, True, block_index=block_index, spec=spec,
+                    index_stride=index_stride,
+                )
         segments, offsets, table_over = encode_ranges(
-            zz_list, CodecTables.from_spec(spec, quality, dev), None,
-            bits_per_pixel_budget=4.0, with_offsets=block_index)
+            zz_list, tables, None, bits_per_pixel_budget=4.0,
+            with_offsets=block_index)
         if table_over:
             raise TableRangeError()
-        words, total = concat_bits(segments, torch.device("cpu"))
-        writer = BitWriter()
-        writer.write_bytes(container.make_header(arrays, custom_table=True))
-        container.write_huffman_table(writer, spec.string_tables())
-        data = concat_bit_payload(writer.to_bytes(), writer.bit_length(),
-                                  stream_bytes(words, total), total)
-        if block_index:
-            # payload-relative offsets: the image starts at bit 0
-            data += container.make_block_index(offsets, stride=index_stride)
+        with profiling.span("codec.encode.assemble"):
+            words, total = concat_bits(segments, torch.device("cpu"))
+            writer = BitWriter()
+            writer.write_bytes(container.make_header(arrays,
+                                                     custom_table=True))
+            container.write_huffman_table(writer, spec.string_tables())
+            data = concat_bit_payload(writer.to_bytes(), writer.bit_length(),
+                                      stream_bytes(words, total), total)
+            if block_index:
+                # payload-relative offsets: the image starts at bit 0
+                data += container.make_block_index(offsets,
+                                                   stride=index_stride)
         return data
 
     def encode_to_words(self, image: np.ndarray,

@@ -28,7 +28,10 @@ path of an image over ``MAX_PIXELS``), the engine's auto-table encode
 over the image with its own tables, and the mesh's shard body
 (``tiled._encode``) over each shard's range.  ``frame_stream`` writes the
 header, payload and TICX trailer of every stream of this layer and of
-``tiled.encode_tiled``.
+``tiled.encode_tiled``.  A range records the stages of
+``compress_batch_device``: ``codec.encode.upload``, ``.transform`` (exact
+mode), ``.entropy`` (``encode2``), ``.place`` and, with offsets, ``.pull``
+(the blocks' offsets).
 
 What is kept from the JAX pipeline, in behaviour: the capacity budget
 ``ceil(B*H*W*bits_per_pixel_budget / 32)`` words, the capacity flag and
@@ -215,7 +218,8 @@ def range_coefficients(image, start: int, stop: int, tables: CodecTables,
     stop)``: exact ones equal the float64 oracle's."""
     out = []
     for a, b in sub_ranges(start, stop):
-        blocks = range_blocks(image, a, b, dev)
+        with profiling.span("codec.encode.upload"):
+            blocks = range_blocks(image, a, b, dev)
         if precision == transform.EXACT:
             out.append(exact_coefficients(blocks, tables))
         else:
@@ -237,14 +241,17 @@ def encode_ranges(zz_list: list[torch.Tensor], tables: CodecTables,
     prev = dc_first
     for zz in zz_list:
         n = zz.shape[1]
-        packed, meta, flag = encode2(zz, tables, n, from_zz=True,
-                                     dc_init=prev)
+        with profiling.span("codec.encode.entropy"):
+            packed, meta, flag = encode2(zz, tables, n, from_zz=True,
+                                         dc_init=prev)
         cap = -(-int(n * 64 * bits_per_pixel_budget) // 32)
         words, _, bits, table_over = place_words(packed, meta, flag, n, cap)
         over |= table_over
         segments.append((words, bits))
         if with_offsets:
-            offsets.append(meta[0].cpu().numpy().astype(np.int64) + before)
+            with profiling.span("codec.encode.pull"):
+                offsets.append(meta[0].cpu().numpy().astype(np.int64)
+                               + before)
         before += bits
         prev = zz[0, n - 1:]
     offs = np.concatenate(offsets) if with_offsets and offsets else None
