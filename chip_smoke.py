@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the C host runtime (``tinyimgcodec_tpu_torch/native``, with
-``cc``) and the seven CUDA kernels from ``tinyimgcodec_tpu_torch/csrc`` with
+``cc``) and the eight CUDA kernels from ``tinyimgcodec_tpu_torch/csrc`` with
 ``nvcc``, holds each kernel against its plain PyTorch version on the card,
 drives the port's main path -- the round trip: ``compress_batch`` of a 49 x
 512 x 512 corpus (exact, fast, and fast through the v1 kernels), one
@@ -147,7 +147,7 @@ from tinyimgcodec_tpu_torch.engine import (  # noqa: E402
 from tinyimgcodec_tpu_torch.metrics import psnr  # noqa: E402
 from tinyimgcodec_tpu_torch.ops import (  # noqa: E402
     _build, encode1, encode2, entropy_decode, exact_inverse, exact_transform,
-    place, stitch, transform,
+    place, stitch, symbol_stats, transform,
 )
 from tinyimgcodec_tpu_torch import pipeline  # noqa: E402
 from tinyimgcodec_tpu_torch.parallel import (  # noqa: E402
@@ -390,7 +390,7 @@ def phase_kernel_check(corpus: np.ndarray) -> dict:
     smooth = synthetic_corpus(4, size)
     noise = rng.randint(0, 256, (4, size, size)).astype(np.uint8)
     errs = {"exact_transform": 0, "encode2": 0, "encode2_pixels": 0,
-            "place": 0, "encode1": 0, "stitch": 0}
+            "place": 0, "encode1": 0, "stitch": 0, "symbol_stats": 0}
     report = []
     for label, images, quality in (("smooth", smooth, 50),
                                    ("noise", noise, 90),
@@ -484,6 +484,17 @@ def phase_kernel_check(corpus: np.ndarray) -> dict:
         s2 = place.place(pk, mk, nb, exact_cap)[0]
         if not eq(stitch.stitch(wk, bk, nb, exact_cap)[0], s2):
             fail(f"stitch[{label}]: stream differs from encode2 + place")
+        # -- symbol_stats: every count and maximum equal, the batch's
+        #    coefficients as one image and as its images' ranges ---------
+        for ranges in ([zz_k], [zz_k[:, i:i + nb].contiguous()
+                                for i in range(0, n, nb)]):
+            hk = symbol_stats.stats_buffer(ranges)
+            hp = symbol_stats.stats_buffer([r.cpu() for r in ranges])
+            errs["symbol_stats"] = max(errs["symbol_stats"],
+                                       max_abs_diff((hk.cpu(), hp)))
+            if not eq(hk.cpu(), hp):
+                fail(f"symbol_stats[{label}, {len(ranges)} ranges]: kernel "
+                     "and plain version differ")
         report.append({
             "case": label, "shape": list(images.shape), "quality": quality,
             "blocks": n,
@@ -499,7 +510,8 @@ def phase_kernel_check(corpus: np.ndarray) -> dict:
                     "flags differ in at most 0.01 % of blocks; equal to the "
                     "float64 oracle after the host recompute",
                     "encode2 from_zz": "equal", "place": "equal",
-                    "encode1 from_zz": "equal", "stitch": "equal, at a "
+                    "encode1 from_zz": "equal", "symbol_stats": "equal",
+                    "stitch": "equal, at a "
                     "roomy capacity, at the exact one and one word short "
                     "(status 2 only there); stream == encode2 + place",
                     "encode1 pixels": "equal to the plain entropy coding "
@@ -1611,12 +1623,13 @@ def phase_main_path(corpus: np.ndarray) -> tuple[dict, list[bytes],
             if not np.array_equal(g, w):
                 fail(f"{label}: image {i} differs from the oracle")
     # the counts of the whole round trip: the sum over its paths; every
-    # kernel must have been launched by one of them
+    # kernel must have been launched by one of them, but ``symbol_stats``,
+    # which only the auto-table encode runs (its phase counts it)
     launched = {k: sum(c[k] for c in per_path.values())
                 for k in next(iter(per_path.values()))}
     if not REHEARSE:
         for k, v in launched.items():
-            if v < 1:
+            if v < 1 and k != "symbol_stats":
                 fail(f"main path launched kernel {k} {v} times")
     emit("main_path", images=list(corpus.shape), quality=quality,
          oracle_checked=f"all {n_img} exact streams byte-equal to "
@@ -1639,9 +1652,11 @@ def phase_main_path(corpus: np.ndarray) -> tuple[dict, list[bytes],
 
 def auto_table_launches(n_img: int) -> dict:
     """What ``n_img`` auto-table encodes on the kernel route launch:
-    ``exact_transform``, ``encode2`` from coefficients and ``place`` once
-    an image each, ``place`` once more where the capacity was too small."""
-    return {"exact_transform": (n_img,), "encode2_zz": (n_img,),
+    ``exact_transform``, ``symbol_stats``, ``encode2`` from coefficients
+    and ``place`` once an image each (an image of one block range),
+    ``place`` once more where the capacity was too small."""
+    return {"exact_transform": (n_img,), "symbol_stats": (n_img,),
+            "encode2_zz": (n_img,),
             "place": tuple(range(n_img, 2 * n_img + 1))}
 
 
@@ -1698,7 +1713,8 @@ def phase_auto_table(corpus: np.ndarray) -> tuple[dict, int, list]:
         routes = [auto_table_route(im, quality) for im in images]
         k = routes.count("kernel")
         want = auto_table_launches(k)
-        want["exact_transform"] = (len(images),)  # both routes transform
+        # both routes transform and count the symbols
+        want["exact_transform"] = want["symbol_stats"] = (len(images),)
         out = counted(label, lambda: [codec.compress(
             im, quality, auto_generate_huffman_table=True, device=DEV)
             for im in images], want, per_path)
@@ -1961,6 +1977,7 @@ def _tiled_checks() -> dict:
     if k2 < 2:
         fail(f"tiled: {h2}x{w2} is not over the limit")
     want = tiled_launches(k2, True)
+    want["symbol_stats"] = (k2,)  # one launch a range
     t0 = time.perf_counter()
     auto = counted(f"compress auto_table {w2}x{h2}", lambda: codec.compress(
         img2, quality, auto_generate_huffman_table=True, device=DEV),
@@ -2950,6 +2967,27 @@ def phase_kernels(corpus: np.ndarray, launched: dict, errs: dict,
             "exact_inverse_kernel"),
         flagged=int(exact_inverse.exact_inverse(zz_e, h, w, dtab)[1]),
     ))
+    # symbol_stats at the auto-table cell's shape: one 512x512 image's
+    # coefficients (1 MB read once, the counts written once); about 20
+    # integer operations a coefficient, far under any bound
+    zz_one = [zz[:, :nb].contiguous()]
+    out.append(row(
+        "symbol_stats", src + "symbol_stats.cu",
+        "none: the JAX package counts the symbols on the host "
+        "(tinyimgcodec_tpu/engine.py:423, huffman.symbol_counts and "
+        "block_bit_counts)",
+        launched["symbol_stats"], errs["symbol_stats"],
+        time_ms(lambda: symbol_stats.stats_buffer(zz_one), reps),
+        time_ms(lambda: symbol_stats.stats_buffer([zz_one[0].cpu()]),
+                max(1, reps // 4)),
+        nb * 64 * 4 + symbol_stats.WORDS * 8, nb * 64 * 20, FP32_PER_S,
+        image_blocks=nb,
+        with_pull_ms=time_ms(lambda: symbol_stats.symbol_stats(zz_one),
+                             reps),
+        device_split=device_split(
+            lambda: symbol_stats.stats_buffer(zz_one), reps,
+            "symbol_stats_kernel"),
+    ))
     return out
 
 
@@ -2998,14 +3036,17 @@ def auto_table_breakdown(img: np.ndarray, stage) -> None:
     emit("auto_table_breakdown", image=list(img.shape), quality=quality,
          note="steps of one exact auto-table compress, each timed alone "
          "(host clock, synchronised, median); coefficients = upload + "
-         "blockify + exact_transform + float64 recompute of flagged "
-         "blocks; then the host's histograms, Huffman tables and route "
-         "rule; encode2_place = both kernels + the pull of status, total "
-         "and stream",
+         "blockify + exact_transform (it settles its flagged blocks); "
+         "symbol_stats = the histograms and block maxima on the card and "
+         "their pull, the compress's path; pull_coefficients, "
+         "symbol_counts and block_bit_counts = the host route's steps; "
+         "then the Huffman tables; encode2_place = both kernels + the "
+         "pull of status, total and stream",
          compress_ms=stage(lambda: codec.compress(
              img, quality, auto_generate_huffman_table=True, device=DEV)),
          coefficients_ms=stage(coefficients),
          pull_coefficients_ms=stage(lambda: zz.cpu().numpy()),
+         symbol_stats_ms=stage(lambda: symbol_stats.symbol_stats([zz])),
          symbol_counts_ms=stage(lambda: huffman.symbol_counts(dc, ac)),
          huffman_tables_ms=stage(
              lambda: huffman.build_huffman_spec_from_counts(*counts)),

@@ -9,7 +9,9 @@ At the corpus shape (49 images of 512x512, quality 50) it calls the
 wrappers of the encode kernels (``encode2`` and ``encode1`` in both input
 forms, ``place`` at the pipeline's capacity and at its retry capacity,
 ``stitch`` at both capacities, ``exact_transform``) and the decode
-wrappers (``entropy_decode``, ``exact_inverse``) under
+wrappers (``entropy_decode``, ``exact_inverse``) and, where the tree has
+it, ``symbol_stats`` on one image's coefficients (the auto-table cell's
+shape), under
 ``torch.profiler`` and prints, for each, the device time of every kernel,
 memset and small tensor operation the wrapper launches (mean microseconds a
 call), beside the wrapper's CUDA-event median and the host time of a call
@@ -245,6 +247,20 @@ def main() -> None:
     if hasattr(entropy_decode, "launch_shape") and wanted("entropy_decode"):
         sweep_decode_shapes(args, prep, dtab)
         sweep_chunks_a_warp(exact * 4)
+    if wanted("symbol_stats") and "symbol_stats" in _build.KERNELS:
+        from tinyimgcodec_tpu_torch.ops import symbol_stats
+
+        one = [zz[:, :nb].contiguous()]  # one 512x512 image, one range
+        split("symbol_stats (one image)",
+              lambda: symbol_stats.stats_buffer(one))
+        split("symbol_stats with the pull (one image)",
+              lambda: symbol_stats.symbol_stats(one))
+        t0 = time.perf_counter()
+        for _ in range(CALLS):
+            symbol_stats.stats_buffer([one[0].cpu()])
+        print(json.dumps({"wrapper": "symbol_stats plain version (CPU)",
+                          "host_ms_per_call": (time.perf_counter() - t0)
+                          / CALLS * 1e3}), flush=True)
     if wanted("exact_inverse"):
         from tinyimgcodec_tpu_torch.ops import exact_inverse
 

@@ -150,7 +150,7 @@ def test_kernel_wrappers_do_not_fall_back_without_nvcc(monkeypatch):
         _build.load("place")
     assert set(_build.KERNELS) == {
         "exact_transform", "encode2", "place", "encode1", "stitch",
-        "entropy_decode", "exact_inverse"}
+        "entropy_decode", "exact_inverse", "symbol_stats"}
 
 
 def test_build_key_follows_the_sources_and_the_headers(tmp_path, monkeypatch):

@@ -23,7 +23,7 @@ from tinyimgcodec_tpu_torch.corpus import (
 from tinyimgcodec_tpu_torch.engine import Engine
 from tinyimgcodec_tpu_torch.ops import (
     _build, encode1, encode2, entropy_decode, exact_inverse, exact_transform,
-    place, stitch,
+    place, stitch, symbol_stats,
 )
 from tinyimgcodec_tpu_torch.ops import transform
 from tinyimgcodec_tpu_torch.pipeline import (
@@ -761,12 +761,60 @@ def test_auto_table_on_the_card_equals_the_oracle(cuda, quality):
 
     img = synthetic_image(61, 83, seed=70)
     before = encode2.launches_by_input["zz"]
+    counted = symbol_stats.launches
     data = compress(img, quality, auto_generate_huffman_table=True,
                     device=cuda)
     assert data == container.compress(img, quality, True, block_index=True)
     assert encode2.launches_by_input["zz"] - before in (0, 1)
+    assert symbol_stats.launches - counted == 1  # on either route
     assert np.array_equal(decompress(data, device=cuda),
                           container.decompress(data))
+
+
+def _stats_ranges(case: str, dev) -> list:
+    """The (64, n) int32 block ranges of a ``symbol_stats`` case on
+    ``dev``."""
+    if case.startswith("corpus"):
+        quality = int(case[-2:])
+        blocks = _blocks(synthetic_corpus(1, 512), dev)
+        return [exact_coefficients(blocks, CodecTables.build(quality, dev))]
+    if case == "noise q90":
+        imgs = np.random.RandomState(72).randint(0, 256, (1, 256, 256))
+        blocks = _blocks(imgs.astype(np.uint8), dev)
+        return [exact_coefficients(blocks, CodecTables.build(90, dev))]
+    rng = np.random.RandomState(73)
+    if case == "ragged last CTA":  # 4133 blocks: 37 in the last CTA
+        zz = rng.randint(-40, 41, (64, 4133)) * (rng.rand(64, 4133) < 0.2)
+        return [torch.from_numpy(zz.astype(np.int32)).to(dev)]
+    if case == "three ranges":
+        zz = rng.randint(-300, 301, (64, 3000)) * (rng.rand(64, 3000) < 0.1)
+        zz[0] = rng.randint(-1000, 1001, 3000)
+        zz = torch.from_numpy(zz.astype(np.int32)).to(dev)
+        return [zz[:, :1000].contiguous(), zz[:, 1000:2100].contiguous(),
+                zz[:, 2100:].contiguous()]
+    # every int32 value, INT_MIN too: sizes past 15, counted at 15
+    zz = rng.randint(-2**31, 2**31, (64, 777), dtype=np.int64)
+    zz[:, ::3] = 0
+    zz[5, 7] = -2**31
+    return [torch.from_numpy(zz.astype(np.int32)).to(dev)]
+
+
+@pytest.mark.parametrize("case", ["corpus q50", "corpus q90", "noise q90",
+                                  "ragged last CTA", "three ranges",
+                                  "wide values"])
+def test_symbol_stats_equals_plain_version(cuda, case):
+    """The kernel's counts and maxima equal the plain version's, one
+    launch a range, the DC carried from range to range."""
+    ranges = _stats_ranges(case, cuda)
+    before = symbol_stats.launches
+    got = symbol_stats.stats_buffer(ranges)
+    assert symbol_stats.launches - before == len(ranges)
+    want = symbol_stats.stats_buffer([r.cpu() for r in ranges])
+    assert torch.equal(got.cpu(), want)
+    if case == "three ranges":  # the carried DC moved the first blocks
+        alone = sum(symbol_stats.stats_buffer([r]).cpu() for r in ranges)
+        assert not torch.equal(alone[:symbol_stats.DC_CATS],
+                               want[:symbol_stats.DC_CATS])
 
 
 def test_encode2_on_hand_made_run_time_tables_equals_plain(cuda):

@@ -308,8 +308,10 @@ def test_the_chrome_trace_shows_the_spans(tmp_path):
     assert {"codec.compress_batch", "codec.encode.transform"} <= names
 
 
-AUTO_STAGES = ["upload", "transform", "pull", "table", "entropy", "place",
-               "pull", "assemble"]
+# the kernel route: the symbol counts come from the card, so no pull of
+# the coefficients before ``.table``; ``.pull`` is the blocks' offsets
+AUTO_STAGES = ["upload", "transform", "table", "entropy", "place", "pull",
+               "assemble"]
 
 
 def _stage_order(recs, call):
@@ -337,7 +339,7 @@ def test_an_auto_table_encode_records_its_stages_and_table_counts():
         "dc_symbols": int(np.count_nonzero(spec.dc_len)),
         "ac_symbols": int(np.count_nonzero(spec.ac_len)),
         "longest": int(max(spec.dc_len.max(), spec.ac_len.max())),
-        "host_route": 0}
+        "host_route": 0, "coeffs_pulled": 0}
     assert not any(r.name == "codec.encode.fallback" for r in recs)
 
 
@@ -348,11 +350,15 @@ def test_an_auto_table_encode_on_the_host_route_records_the_fallback():
         CONTRAST, 97, auto_generate_huffman_table=True, device="cpu"))
     assert out == tcontainer.compress(CONTRAST, 97, True, block_index=True)
     call = _one(recs, "codec.compress")
+    # the extended table needs the coefficients on the host: their pull
+    # opens inside ``.table``
     assert _stage_order(recs, call) == [
-        f"codec.encode.{s}" for s in ("upload", "transform", "pull",
-                                      "table", "fallback")]
-    table = _one(recs, "codec.encode.table").counts
-    assert table["host_route"] == 1 and table["blocks"] == 64
+        f"codec.encode.{s}" for s in ("upload", "transform", "table",
+                                      "pull", "fallback")]
+    table = _one(recs, "codec.encode.table")
+    assert _one(recs, "codec.encode.pull").parent_id == table.span_id
+    assert table.counts["host_route"] == 1 and table.counts["blocks"] == 64
+    assert table.counts["coeffs_pulled"] == 1
     assert _one(recs, "codec.encode.fallback").counts == {"images": 1}
 
 

@@ -37,6 +37,7 @@ from .ops import _build, encode1, encode2, entropy_decode, exact_inverse
 from .ops import exact_transform
 from .ops import place
 from .ops import stitch
+from .ops import symbol_stats
 from .ops import transform
 from .ops.entropy_decode import prepare_batch
 from .pipeline import compress_batch_device, exact_coefficients
@@ -54,7 +55,8 @@ TABLE_RANGE = "Huffman table range"
 
 _KERNELS = {"exact_transform": exact_transform, "encode2": encode2,
             "place": place, "encode1": encode1, "stitch": stitch,
-            "entropy_decode": entropy_decode, "exact_inverse": exact_inverse}
+            "entropy_decode": entropy_decode, "exact_inverse": exact_inverse,
+            "symbol_stats": symbol_stats}
 
 
 def contents(h: int, w: int) -> dict[str, np.ndarray]:
@@ -420,7 +422,7 @@ def _digest(*tensors) -> str:
 
 def kernels_vs_plain(images: np.ndarray, quality: int = 50,
                      device: str | torch.device | None = None) -> dict:
-    """Each of the seven kernel wrappers against its plain version on the
+    """Each of the eight kernel wrappers against its plain version on the
     same tensors on ``device``, at the shapes ``compress_batch`` of
     ``images`` (B, H, W) gives them (``chip_smoke.py``'s bars):
 
@@ -439,7 +441,9 @@ def kernels_vs_plain(images: np.ndarray, quality: int = 50,
     - ``entropy_decode`` of the images' exact indexed streams: ``zz`` and
       the chunk flags equal;
     - ``exact_inverse`` of those rows: the pixels and the count of
-      flagged blocks equal.
+      flagged blocks equal;
+    - ``symbol_stats`` of the exact coefficients, the batch as one block
+      range: every count and maximum equal.
 
     Returns ``{"device", "checks", "all_passed", "digests"}``;
     ``digests``: the sha256 of each wrapper's outputs, so that the same
@@ -534,6 +538,10 @@ def kernels_vs_plain(images: np.ndarray, quality: int = 50,
     ip = exact_inverse.exact_inverse_plain(zb, h, w, dt)
     check("exact_inverse", same(*zip(ik, ip)), flagged=int(ik[1]))
     digests["exact_inverse"] = _digest(*ik)
+
+    hk = symbol_stats.stats_buffer([zz])
+    check("symbol_stats", same((hk, symbol_stats.symbol_stats_plain(zz))))
+    digests["symbol_stats"] = _digest(hk)
     return record
 
 

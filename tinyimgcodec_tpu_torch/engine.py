@@ -3,11 +3,12 @@
 The counterpart of the JAX package's ``engine.Engine``.  ``compress`` runs
 the batch pipeline with B = 1, so the one-image entry point and the batch
 entry point are the same program.  ``compress(..., auto_table=True)`` codes
-the image with Huffman tables built for it at run time: coefficients on
-the device, histograms and tables on the host, then the same ``encode2`` +
-``place`` kernels with the new tables, in the pipeline's block ranges (or
-the host container when the tables leave the kernels' range), each step a
-``codec.encode.*`` stage span (``table`` and ``fallback`` its own).
+the image with Huffman tables built for it at run time: coefficients and
+their symbol histograms on the device (``ops/symbol_stats.py``), the
+tables on the host, then the same ``encode2`` + ``place`` kernels with
+the new tables, in the pipeline's block ranges (or the host container
+when the tables leave the kernels' range), each step a ``codec.encode.*``
+stage span (``table`` and ``fallback`` its own).
 
 Decode has three legs, chosen per stream by what the *stream* is, never
 by what the device or the build did:
@@ -59,9 +60,7 @@ from .bitstream import BitWriter, concat_bit_payload
 from .constants import FLAG_CUSTOM_TABLE, FLAG_SCALED_DCT
 from .device import resolve_device
 from .golden import CodecArrays
-from .huffman import (
-    block_bit_counts, build_huffman_spec_from_counts, symbol_counts,
-)
+from .huffman import block_bit_counts, build_huffman_spec_from_counts
 from .ops import transform
 from .ops.encode1 import BLOCK_WORDS, encode1
 from .ops.encode2 import fast_coefficients
@@ -69,6 +68,7 @@ from .ops.entropy_decode import (
     chunk_table, entropy_decode_chunks, prepare_batch,
 )
 from .ops.exact_inverse import exact_inverse
+from .ops.symbol_stats import symbol_stats
 from .pipeline import (
     TableRangeError, compress_batch_device, concat_bits, encode_ranges,
     exact_coefficients, range_blocks, range_coefficients, stream_bytes,
@@ -250,24 +250,31 @@ class Engine:
         Coefficients on the device (exact: ``exact_transform``, which
         settles its flagged blocks in the oracle's arithmetic; fast: the
         float32 transform pass of ``encode2``), in block ranges of at most
-        ``pipeline.MAX_PIXELS`` pixels, pulled once for the histograms and
-        the table (the same canonical construction as the host path).
-        Then, before any launch, the route: the host container when the
-        table is ``extended`` or some block would take more than
+        ``pipeline.MAX_PIXELS`` pixels; their symbol histograms and
+        per-block maxima on the device too (``symbol_stats``, one launch a
+        range, one pull of its counts), then the table on the host (the
+        same canonical construction as the host path).  Then, before any
+        encode launch, the route: the host container when the table is
+        ``extended`` or some block would take more than
         ``KERNEL_BLOCK_BITS`` (the block rule of the JAX package,
         ``ops/entropy.py:263-268``; its other rule, no symbol slot above
         64 bits, does not apply: the kernel's bit sink takes the ZRL
         prefix and the code apart), else, range by range, ``encode2`` from
         the coefficients with the new tables (the DC predictor carried
         from range to range) and ``place``, the ranges stitched at bit
-        offsets after the table segment.
+        offsets after the table segment.  No block passes
+        ``SymbolStats.block_bits_bound`` of the longest code; only where
+        that bound passes ``KERNEL_BLOCK_BITS`` or the table is extended
+        are the coefficients pulled, for the exact per-block bit counts
+        (``block_bit_counts``) and the host container.
 
         Stages (``codec.encode.*``): ``upload`` (the padding, then each
-        range's copy and ``blockify``), ``transform``, ``pull`` (the
-        coefficients to the host), ``table`` (DPCM, histograms, the
-        canonical tables, the route; counts ``blocks``, ``dc_symbols`` and
-        ``ac_symbols`` (the symbols given a code), ``longest`` (the longest
-        code) and ``host_route``), then on the kernel route ``entropy``,
+        range's copy and ``blockify``), ``transform``, ``table``
+        (``symbol_stats``, the canonical tables, the route, and, nested in
+        it, ``pull`` where the coefficients come to the host; counts
+        ``blocks``, ``dc_symbols`` and ``ac_symbols`` (the symbols given a
+        code), ``longest`` (the longest code), ``host_route`` and
+        ``coeffs_pulled``), then on the kernel route ``entropy``,
         ``place``, ``pull`` (the blocks' offsets) and ``assemble`` (the
         join, the header, the table segment, the trailer); on the host
         route ``fallback`` (count ``images``)."""
@@ -283,22 +290,31 @@ class Engine:
         # pipeline cuts an image of more than ``MAX_PIXELS``
         zz_list = range_coefficients(padded, 0, nb, tables, self.precision,
                                      dev)
-        with profiling.span("codec.encode.pull"):
-            zz_np = np.concatenate([zz.cpu().numpy() for zz in zz_list],
-                                   axis=1)
+        # the coefficients stay on the device unless the route needs them;
+        # the header needs only the shape and quality
+        dc, ac = np.zeros(0, np.int32), np.zeros((0, 63), np.int32)
         with profiling.span("codec.encode.table") as stage:
-            dc = np.diff(zz_np[0], prepend=np.int32(0)).astype(np.int32)
-            ac = np.ascontiguousarray(zz_np[1:].T)
-            spec = build_huffman_spec_from_counts(*symbol_counts(dc, ac))
-            host_route = bool(
-                spec.extended or int(block_bit_counts(dc, ac, spec).max())
-                > KERNEL_BLOCK_BITS)
+            stats = symbol_stats(zz_list)
+            spec = build_huffman_spec_from_counts(stats.dc_counts,
+                                                  stats.ac_counts)
+            longest = int(max(spec.dc_len.max(), spec.ac_len.max()))
+            pulled = bool(spec.extended or stats.block_bits_bound(longest)
+                          > KERNEL_BLOCK_BITS)
+            host_route = spec.extended
+            if pulled:
+                with profiling.span("codec.encode.pull"):
+                    zz_np = np.concatenate(
+                        [zz.cpu().numpy() for zz in zz_list], axis=1)
+                dc = np.diff(zz_np[0], prepend=np.int32(0)).astype(np.int32)
+                ac = np.ascontiguousarray(zz_np[1:].T)
+                host_route = bool(host_route or int(block_bit_counts(
+                    dc, ac, spec).max()) > KERNEL_BLOCK_BITS)
             if not host_route:
                 tables = CodecTables.from_spec(spec, quality, dev)
             stage.set(blocks=nb, dc_symbols=int(np.count_nonzero(
                 spec.dc_len)), ac_symbols=int(np.count_nonzero(spec.ac_len)),
-                longest=int(max(spec.dc_len.max(), spec.ac_len.max())),
-                host_route=int(host_route))
+                longest=longest, host_route=int(host_route),
+                coeffs_pulled=int(pulled))
         arrays = CodecArrays(height=h, width=w, quality=quality, dc=dc,
                              ac=ac)
         if host_route:

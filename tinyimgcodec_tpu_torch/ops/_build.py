@@ -31,7 +31,7 @@ BUILD_DIR = Path(
     )
 )
 KERNELS = ("exact_transform", "encode2", "place", "encode1", "stitch",
-           "entropy_decode", "exact_inverse")
+           "entropy_decode", "exact_inverse", "symbol_stats")
 
 # -fmad=false: the kernels are held bit for bit against plain PyTorch
 # versions that round after every multiply and every add; a contracted
